@@ -1,0 +1,32 @@
+"""klara_tpu_torch — the PyTorch / CUDA port of klara_tpu.
+
+Batch-first MCMC on one NVIDIA GPU: every function of a position takes a
+leading chains axis, randomness comes from an explicit ``torch.Generator``,
+and the hot op (the logistic-regression value+gradient) is a hand-written
+CUDA kernel with a plain PyTorch version for CPU tensors.  The JAX package
+``klara_tpu`` is the reference each module is tested against.
+"""
+
+from klara_tpu_torch.core.target import Target, bounded_target, whiten_target
+from klara_tpu_torch.jobs.chain import Chain
+from klara_tpu_torch.jobs.job import MCJob, run
+from klara_tpu_torch.jobs.range import MCRange
+from klara_tpu_torch.samplers import HMC
+from klara_tpu_torch.tuners import DualAveragingTuner, VanillaTuner
+from klara_tpu_torch import stats
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Target",
+    "bounded_target",
+    "whiten_target",
+    "Chain",
+    "MCJob",
+    "MCRange",
+    "run",
+    "HMC",
+    "VanillaTuner",
+    "DualAveragingTuner",
+    "stats",
+]

@@ -1,0 +1,5 @@
+from klara_tpu_torch.jobs.chain import Chain
+from klara_tpu_torch.jobs.job import MCJob, run
+from klara_tpu_torch.jobs.range import MCRange
+
+__all__ = ["Chain", "MCJob", "MCRange", "run"]

@@ -1,0 +1,421 @@
+"""MCJob: the simulation driver, batch-first (counterpart of klara_tpu/jobs/job.py).
+
+The JAX driver vmaps a per-chain step kernel over a chains axis and scans it
+over steps inside one compiled program.  Here the sampler's step is already
+batched and the scan is a Python loop; per-step gating (burnin, saving,
+adaptation periods) is plain Python on the step index, so it costs no
+device synchronisation.  The one host read per MCMC step is the leapfrog
+trip count (``samplers.hamiltonian.leapfrog``).
+
+The three adaptation hooks (pooled tuning, ensemble mass, ChEES trajectory
+length) are module-level functions of the post-kernel states, the step's
+infos, the step index and the shared jitter fraction, applied in that order
+by ``MCJob.adapt``.
+
+Not ported yet: mesh sharding, CSV streaming, ``resume``, ``verbose``
+progress, the scalar-target lift and the tensor-valued monitors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Optional, Sequence
+
+import torch
+
+from klara_tpu_torch.core.target import Target, whiten_target
+from klara_tpu_torch.jobs.chain import Chain
+from klara_tpu_torch.jobs.range import MCRange
+from klara_tpu_torch.samplers.base import Info, Sampler
+from klara_tpu_torch.samplers.hmc import jitter_fraction
+from klara_tpu_torch.tuners.tuners import DualAveragingTuner, Tuner
+
+
+def _field_value(name: str, state, info: Info, target: Target):
+    if name == "value":
+        return state.position
+    if name == "logtarget":
+        return info.logtarget
+    if name == "loglikelihood":
+        return target.loglikelihood(state.position)
+    if name == "logprior":
+        return target.logprior(state.position)
+    if name == "gradlogtarget":
+        if hasattr(state, "gradlogtarget"):
+            return state.gradlogtarget
+        return target.grad(state.position)
+    raise ValueError(f"unknown or not yet ported monitored field {name!r}")
+
+
+def _diag_value(name: str, state, info: Info):
+    if name == "accept":
+        return info.accept
+    if name == "accept_stat":
+        return info.accept_stat
+    if name in info.extras:
+        return info.extras[name]
+    if name in getattr(state, "_fields", ()):
+        val = getattr(state, name)
+        if isinstance(val, torch.Tensor):
+            return val
+    raise ValueError(f"unknown diagnostic {name!r}")
+
+
+# ---------------------------------------------------------- adaptation hooks
+def tune_update(tuner: Tuner, states, infos: Info, stat_name: str, pooled: bool,
+                burnin: int):
+    """Tuner update from this step's acceptance; with ``pooled`` every chain
+    gets the cross-chain mean."""
+    accept = infos.accept.to(torch.float32)
+    stat = infos.accept_stat if stat_name == "accept_stat" else accept
+    if pooled:
+        accept = accept.mean().expand(accept.shape)
+        stat = stat.to(torch.float32).mean().expand(stat.shape)
+    return states._replace(tune=tuner.update(states.tune, accept, stat, burnin))
+
+
+def mass_update(states, i: int, burnin: int, mass_period: int):
+    """Every ``mass_period`` burnin steps, set the diagonal inverse mass to
+    the regularised ensemble variance, Stan's
+    Σ = n/(n+5)·var + 5/(n+5)·1e-3 with n the number of chains."""
+    if not ((i + 1) % mass_period == 0 and i + 1 >= mass_period and i < burnin):
+        return states
+    n_c = states.position.shape[0]
+    var = torch.var(states.position, dim=0, keepdim=True, correction=0)
+    w = n_c / (n_c + 5.0)
+    new_inv_mass = (w * var + (1.0 - w) * 1e-3 + 1e-7).expand(states.inv_mass.shape)
+    return states._replace(inv_mass=new_inv_mass)
+
+
+def _f32(x, like):
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+def chees_update(states, prev_pos, infos: Info, i: int, frac_shared, burnin: int,
+                 traj_lr: float, traj_start_frac: float,
+                 max_nleaps: Optional[int] = None, jitter: float = 0.0):
+    """ChEES trajectory-length adaptation (Hoffman, Radul & Sountsov 2021):
+    one pooled Adam ascent step on log λ from the ensemble's phase-space
+    endpoints, distances whitened by the inverse mass, λ capped at what
+    ``max_nleaps`` can execute."""
+    traj_start = int(burnin * traj_start_frac)
+    if not traj_start <= i < burnin:
+        return states
+    x_prop = infos.extras["x_prop"]
+    p_end = infos.extras["p_end"]
+    frac = infos.extras["traj_frac"].to(torch.float32) * frac_shared
+    a = infos.accept_stat.to(torch.float32)
+    inv_w = 1.0 / states.inv_mass
+    xbar = prev_pos.mean(0)
+    xpbar = x_prop.mean(0)
+    dold = (inv_w * torch.square(prev_pos - xbar)).sum(-1)
+    dnew = (inv_w * torch.square(x_prop - xpbar)).sum(-1)
+    proj = ((x_prop - xpbar) * p_end).sum(-1)
+    w = a / torch.clamp_min(a.mean(), 1e-3)
+    g = (w * (dnew - dold) * proj * frac).mean()
+    g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
+    b1, b2 = _f32(0.9, g), _f32(0.999, g)
+    t = _f32(i + 1, g)
+    m = b1 * states.traj_m.mean() + (1.0 - b1) * g
+    v = b2 * states.traj_v.mean() + (1.0 - b2) * g * g
+    mhat = m / (1.0 - torch.pow(b1, t))
+    vhat = v / (1.0 - torch.pow(b2, t))
+    lt_new = states.log_traj.mean() + traj_lr * mhat / (torch.sqrt(vhat) + 1e-8)
+    lt_new = torch.clamp(lt_new, torch.log(_f32(1e-2, g)), torch.log(_f32(1e3, g)))
+    if max_nleaps is not None:
+        eps_now = states.tune.step.mean()
+        cap = torch.log(eps_now * max_nleaps / (1.0 + jitter))
+        lt_new = torch.minimum(lt_new, cap.to(lt_new.dtype))
+
+    def bc(x, like):
+        return x.to(like.dtype).expand(like.shape)
+
+    return states._replace(
+        log_traj=bc(lt_new, states.log_traj),
+        traj_m=bc(m, states.traj_m),
+        traj_v=bc(v, states.traj_v),
+    )
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@dataclasses.dataclass
+class MCJob:
+    """Single-parameter MCMC job over a batch of chains.
+
+    target, sampler, mcrange, tuner (None -> sampler.default_tuner()),
+    n_chains, monitor (saved fields), diagnostics (saved per-draw
+    diagnostics), pooled_tuning (adapt from cross-chain pooled statistics),
+    step_size (initial step override), mass_adaptation / mass_period
+    (ensemble diagonal mass), traj_adaptation / traj_lr / traj_start_frac
+    (ChEES), trace_dtype (storage dtype of floating sample traces, e.g.
+    'bfloat16'), device (None -> the device of x0)."""
+
+    target: Target
+    sampler: Sampler
+    mcrange: MCRange = dataclasses.field(default_factory=MCRange)
+    tuner: Optional[Tuner] = None
+    n_chains: int = 1
+    monitor: Sequence[str] = ("value", "logtarget")
+    diagnostics: Sequence[str] = ("accept",)
+    pooled_tuning: bool = False
+    step_size: Optional[float] = None
+    mass_adaptation: bool = False
+    mass_period: int = 100
+    traj_adaptation: bool = False
+    traj_lr: float = 0.1
+    traj_start_frac: float = 0.1
+    trace_dtype: Optional[str] = None
+    device: Any = None
+
+    def __post_init__(self):
+        if self.tuner is None:
+            self.tuner = self.sampler.default_tuner()
+        self.sampler = self.sampler.bind_tuner(self.tuner)
+        if self.traj_adaptation:
+            if not hasattr(self.sampler, "dynamic_nleaps"):
+                raise ValueError(
+                    "traj_adaptation requires an HMC-family sampler whose "
+                    "trajectory length is dynamic (state carries log_traj)"
+                )
+            if not self.sampler.dynamic_nleaps:
+                self.sampler = dataclasses.replace(self.sampler, dynamic_nleaps=True)
+        if self.trace_dtype is not None:
+            dt = getattr(torch, str(self.trace_dtype), None)
+            if not isinstance(dt, torch.dtype):
+                raise ValueError(f"unknown trace_dtype {self.trace_dtype!r}")
+
+    # ------------------------------------------------------------------ init
+    def _prepare_x0(self, generator, x0):
+        if x0 is None:
+            x0 = self.target.sample_prior(generator, self.n_chains)
+        x0 = torch.as_tensor(x0)
+        if self.device is not None:
+            x0 = x0.to(self.device)
+        if x0.dim() == 1:
+            x0 = x0.expand(self.n_chains, -1)
+        if x0.dim() != 2 or x0.shape[0] != self.n_chains:
+            raise ValueError(
+                f"x0 must be (dim,) or (n_chains={self.n_chains}, dim); got "
+                f"{tuple(x0.shape)}"
+            )
+        x0 = x0.contiguous()
+        lt0 = self.target.logdensity(x0[:1])
+        if not bool(torch.isfinite(lt0).all()):
+            raise ValueError(
+                f"log-target not finite at the initial value "
+                f"(logdensity={float(lt0[0])}): initial value out of support"
+            )
+        return x0
+
+    def _init_states(self, generator, x0, momentum=None):
+        states = self.sampler.init(
+            self.target, x0, generator, step_size=self.step_size,
+            tuner=self.tuner, momentum=momentum,
+        )
+        if self.pooled_tuning and hasattr(states, "tune") and not self.sampler.self_tuning:
+            # one shared step: geometric mean of the per-chain searches, μ
+            # re-anchored to it
+            tune = states.tune
+            pooled = torch.exp(torch.log(tune.step).mean())
+            tune = tune._replace(step=pooled.expand(tune.step.shape).to(tune.step.dtype))
+            if isinstance(self.tuner, DualAveragingTuner):
+                tune = self.tuner.set_mu_from_step(tune)
+            states = states._replace(tune=tune)
+        return states
+
+    # ------------------------------------------------------------------ step
+    def adapt(self, prev_pos, states, infos: Info, i: int, frac_shared=1.0):
+        """The adaptation hooks for step ``i``, applied to the post-kernel
+        states (pre-step positions ``prev_pos``)."""
+        sampler, burnin = self.sampler, self.mcrange.burnin
+        if not sampler.self_tuning:
+            states = tune_update(
+                self.tuner, states, infos, sampler.tuner_statistic,
+                self.pooled_tuning, burnin,
+            )
+        if self.mass_adaptation and hasattr(states, "inv_mass"):
+            states = mass_update(states, i, burnin, self.mass_period)
+        if self.traj_adaptation and hasattr(states, "log_traj"):
+            states = chees_update(
+                states, prev_pos, infos, i, frac_shared, burnin, self.traj_lr,
+                self.traj_start_frac, getattr(sampler, "max_nleaps", None),
+                getattr(sampler, "jitter", 0.0),
+            )
+        return states
+
+    def _shared_jitter(self) -> bool:
+        s = self.sampler
+        return (
+            getattr(s, "jitter", 0.0) > 0.0
+            and getattr(s, "jitter_style", "chain") == "step"
+            and getattr(s, "dynamic_nleaps", False)
+        )
+
+    def _loop(self, states, generator, start, stop, adapt, buffers=None):
+        """Steps [start, stop).  With shared ('step') jitter one draw per
+        step scales every chain's λ through a temporary log_traj offset, so
+        all chains run the same leap count."""
+        sampler, target = self.sampler, self.target
+        burnin, thinning = self.mcrange.burnin, self.mcrange.thinning
+        shared = self._shared_jitter()
+        step_sampler = dataclasses.replace(sampler, jitter=0.0) if shared else sampler
+        for i in range(start, stop):
+            prev_pos = states.position
+            frac_shared = 1.0
+            if shared:
+                lt_saved = states.log_traj
+                u = torch.rand((), generator=generator, device=lt_saved.device,
+                               dtype=lt_saved.dtype)
+                frac_shared = jitter_fraction(u, sampler.jitter)
+                states = states._replace(log_traj=lt_saved + torch.log(frac_shared))
+            states, infos = step_sampler.step(states, target, generator)
+            if shared:
+                states = states._replace(log_traj=lt_saved)
+            if adapt:
+                states = self.adapt(prev_pos, states, infos, i, frac_shared)
+            if buffers is not None and i >= burnin and (i - burnin) % thinning == 0:
+                self._write(buffers, (i - burnin) // thinning, states, infos)
+        return states
+
+    def _write(self, buffers, idx, states, infos):
+        samples, diags = buffers
+        tdt = getattr(torch, self.trace_dtype) if self.trace_dtype else None
+        n_post = self.mcrange.n_post
+        for group, names, fn, cast in (
+            (samples, self.monitor, lambda n: _field_value(n, states, infos, self.target), True),
+            (diags, self.diagnostics, lambda n: _diag_value(n, states, infos), False),
+        ):
+            for name in names:
+                val = fn(name)
+                if name not in group:
+                    dt = val.dtype
+                    if cast and tdt is not None and val.is_floating_point():
+                        dt = tdt
+                    # every slot is written exactly once by the end of the run
+                    group[name] = torch.empty(
+                        (n_post,) + tuple(val.shape), dtype=dt, device=val.device
+                    )
+                group[name][idx] = val
+
+    # ------------------------------------------------------------------- run
+    def run(self, generator=None, x0=None) -> Chain:
+        """Run all ``mcrange.n_steps`` steps, adapting during burnin and
+        saving the post-burnin draws."""
+        x0 = self._prepare_x0(generator, x0)
+        states = self._init_states(generator, x0)
+        buffers = ({}, {})
+        states = self._loop(states, generator, 0, self.mcrange.n_steps, True, buffers)
+        return Chain(samples=buffers[0], diagnostics=buffers[1], final_state=states)
+
+    def run_phased(self, generator=None, x0=None):
+        """Warmup (init + burnin steps with adaptation, then the tuner's
+        finalize) and sampling (no adaptation code) timed apart.  Returns
+        ``(chain, {'warmup_seconds', 'sampling_seconds'})``; on a CUDA device
+        each phase ends in a synchronise."""
+        x0 = self._prepare_x0(generator, x0)
+        device = x0.device
+        _sync(device)
+        t0 = time.perf_counter()
+        states = self._init_states(generator, x0)
+        burnin = self.mcrange.burnin
+        if burnin > 0:
+            states = self._loop(states, generator, 0, burnin, True)
+            if hasattr(states, "tune") and not self.sampler.self_tuning:
+                states = states._replace(tune=self.tuner.finalize(states.tune))
+        _sync(device)
+        t1 = time.perf_counter()
+        buffers = ({}, {})
+        states = self._loop(states, generator, burnin, self.mcrange.n_steps, False, buffers)
+        _sync(device)
+        t2 = time.perf_counter()
+        chain = Chain(samples=buffers[0], diagnostics=buffers[1], final_state=states)
+        return chain, {"warmup_seconds": t1 - t0, "sampling_seconds": t2 - t1}
+
+    # ---------------------------------------- dense ensemble preconditioning
+    def run_preconditioned(self, generator=None, x0=None, ridge: float = 1e-6,
+                           stage2_replace: Optional[dict] = None,
+                           warm_stage2: bool = False, back_transform: bool = True):
+        """Two-stage run with a dense ensemble preconditioner.
+
+        Stage 1 runs this job's warmup on the raw target; the end-of-warmup
+        ensemble covariance (shrunk toward its diagonal with weight
+        n/(n+D), plus a relative ridge) is factored as Σ = L Lᵀ in f32.
+        Stage 2 reruns warmup and sampling on ``whiten_target(target, L)``
+        from the whitened stage-1 positions, with the step seeded at
+        dim^-1/4 unless a step size is given.  Returns ``(chain, timings,
+        info)``: the trace is mapped back to x = y Lᵀ unless
+        ``back_transform=False``; ``timings['warmup_seconds']`` is stage 1
+        in full plus stage 2's warmup; ``info`` holds ``chol`` and the
+        whitened job.  ``warm_stage2`` runs stage 2 once and discards it
+        before the timed pass."""
+        if tuple(self.monitor) != ("value",):
+            raise ValueError(
+                "run_preconditioned requires monitor=('value',); other "
+                "fields are not back-transformed from the whitened space"
+            )
+        if self.n_chains < 2:
+            raise ValueError(
+                "run_preconditioned needs an ensemble (n_chains >= 2; "
+                "intended regime n_chains >> dim)"
+            )
+        stage1 = dataclasses.replace(
+            self,
+            mcrange=MCRange(n_steps=self.mcrange.burnin + 1, burnin=self.mcrange.burnin),
+        )
+        c1, t1 = stage1.run_phased(generator, x0)
+        # the trace may be stored in bf16: covariance, Cholesky and the
+        # stage-2 start come back to f32
+        x_end = c1.value[-1].to(torch.float32)
+        del c1
+        chol = ensemble_cholesky(x_end, ridge)
+
+        repl = dict(stage2_replace or {})
+        if "step_size" not in repl and self.step_size is None:
+            repl["step_size"] = float(x_end.shape[1]) ** -0.25
+        wjob = dataclasses.replace(self, target=whiten_target(self.target, chol), **repl)
+        y0 = torch.linalg.solve_triangular(chol, x_end.T, upper=False).T
+        if warm_stage2:
+            warm, _ = wjob.run_phased(generator, y0)
+            del warm
+        chain, t2 = wjob.run_phased(generator, y0)
+        if back_transform:
+            chain.samples["value"] = _back_transform(chain.samples["value"], chol)
+        timings = {
+            "warmup_seconds": t1["warmup_seconds"] + t1["sampling_seconds"]
+            + t2["warmup_seconds"],
+            "sampling_seconds": t2["sampling_seconds"],
+        }
+        return chain, timings, {"chol": chol, "whitened_job": wjob}
+
+
+def ensemble_cholesky(x_end, ridge: float = 1e-6):
+    """Cholesky factor of the shrunk, ridged ensemble covariance of the
+    (n_chains, D) positions ``x_end``, in f32."""
+    x_end = x_end.to(torch.float32)
+    n, d = x_end.shape
+    xc = x_end - x_end.mean(0, keepdim=True)
+    cov = (xc.T @ xc) / (n - 1)
+    w = n / (n + d)
+    cov = w * cov + (1.0 - w) * torch.diag(torch.diagonal(cov))
+    lam = ridge * torch.diagonal(cov).mean() + 1e-12
+    return torch.linalg.cholesky(cov + lam * torch.eye(d, dtype=cov.dtype, device=cov.device))
+
+
+def _back_transform(y_trace, chol, chunk: int = 64):
+    """x = y Lᵀ per draw, in f32, stored back in the trace's dtype, a chunk
+    of draws at a time so no second full-size f32 trace is held."""
+    out = torch.empty_like(y_trace)
+    chol_t = chol.T
+    for s in range(0, y_trace.shape[0], chunk):
+        out[s:s + chunk] = (y_trace[s:s + chunk].to(torch.float32) @ chol_t).to(y_trace.dtype)
+    return out
+
+
+def run(jobs, generator, x0s):
+    """Run a sequence of jobs one after the other."""
+    return [job.run(generator, x0) for job, x0 in zip(jobs, x0s)]

@@ -1,0 +1,76 @@
+"""Build the hand-written CUDA kernels with nvcc and load them with ctypes.
+
+The sources are ``csrc/*.cu``; the shared library goes to ``_build/`` beside
+this file (listed in ``.gitignore``).  The build happens at first use, in
+the process that first launches a kernel, and again whenever a source is
+newer than the library.  Nothing here runs at import time, so the package
+imports on a machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+LIB_PATH = os.path.join(BUILD_DIR, "libklara_kernels.so")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_lib = None
+build_log = ""  # nvcc's output of the last build in this process (-Xptxas -v)
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def _stale(sources) -> bool:
+    if not os.path.exists(LIB_PATH):
+        return True
+    built = os.path.getmtime(LIB_PATH)
+    return any(os.path.getmtime(s) > built for s in sources)
+
+
+def build() -> str:
+    """Compile ``csrc/*.cu`` into one shared library if it is missing or
+    stale; return its path.  A failed build raises."""
+    global build_log
+    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    if not _stale(sources):
+        return LIB_PATH
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
+        capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, LIB_PATH)
+    build_log = proc.stdout + proc.stderr
+    return LIB_PATH
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        fn = lib.klara_logreg_value_grad_f32
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+            ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib

@@ -1,0 +1,109 @@
+"""Hamiltonian-dynamics utilities, batch-first (counterpart of
+klara_tpu/samplers/hamiltonian.py).
+
+Per-chain control flow is masked, not looped per chain: ``leapfrog`` takes a
+per-chain step count, runs to the batch maximum and freezes finished chains
+with ``torch.where``; the step-size search keeps a per-chain ε and "active"
+flag and evaluates the target on the whole batch each iteration.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+
+def hamiltonian(logtarget, momentum, inv_mass=None):
+    """H(x, p) in log-target convention: logtarget − ½ pᵀM⁻¹p, per chain."""
+    if inv_mass is None:
+        return logtarget - 0.5 * (momentum * momentum).sum(-1)
+    return logtarget - 0.5 * (inv_mass * momentum * momentum).sum(-1)
+
+
+def sample_momentum(generator, position, inv_mass=None):
+    """p ~ N(0, M): z / sqrt(M⁻¹) for diagonal M."""
+    z = torch.randn(
+        position.shape, generator=generator, device=position.device,
+        dtype=position.dtype,
+    )
+    if inv_mass is None:
+        return z
+    return z * torch.rsqrt(inv_mass)
+
+
+class PhasePoint(NamedTuple):
+    position: torch.Tensor
+    momentum: torch.Tensor
+    logtarget: torch.Tensor
+    gradlogtarget: torch.Tensor
+
+
+def leapfrog_step(target, pp: PhasePoint, eps, inv_mass=None) -> PhasePoint:
+    """One leapfrog step; ``eps`` is a scalar or a per-chain (C,) tensor."""
+    eps = torch.as_tensor(eps, dtype=pp.position.dtype, device=pp.position.device)
+    if eps.dim() == 1:
+        eps = eps[:, None]
+    p_half = pp.momentum + 0.5 * eps * pp.gradlogtarget
+    vel = p_half if inv_mass is None else inv_mass * p_half
+    x = pp.position + eps * vel
+    lt, grad = target.logdensity_and_grad(x)
+    p = p_half + 0.5 * eps * grad
+    return PhasePoint(x, p, lt, grad)
+
+
+def leapfrog(target, pp: PhasePoint, eps, n_steps, inv_mass=None) -> PhasePoint:
+    """``n_steps`` leapfrog steps: an int, or a per-chain (C,) tensor.
+
+    A tensor count costs one host read per call (its max and min).  When
+    every chain has the same count, as under pooled tuning with shared
+    jitter, no masking is done."""
+    if isinstance(n_steps, int):
+        n_max, n_min = n_steps, n_steps
+    else:
+        n_max, n_min = (int(t) for t in torch.stack([n_steps.max(), n_steps.min()]).tolist())
+    for k in range(n_max):
+        new = leapfrog_step(target, pp, eps, inv_mass)
+        if k < n_min:
+            pp = new
+        else:
+            live = k < n_steps  # (C,)
+            pp = PhasePoint(*(
+                torch.where(live.view((-1,) + (1,) * (a.dim() - 1)), a, b)
+                for a, b in zip(new, pp)
+            ))
+    return pp
+
+
+def find_reasonable_step_size(target, position, generator=None, max_iter=100,
+                              momentum=None):
+    """Per-chain heuristic ε: double or halve from 1 until the one-step
+    acceptance probability crosses 0.5 (Hoffman-Gelman Algorithm 4), as a
+    masked batch loop.  ``momentum`` may be given (tests replay another
+    package's draws)."""
+    lt, grad = target.logdensity_and_grad(position)
+    p0 = momentum if momentum is not None else torch.randn(
+        position.shape, generator=generator, device=position.device,
+        dtype=position.dtype,
+    )
+    h0 = hamiltonian(lt, p0)
+    eps = torch.ones(position.shape[0], dtype=position.dtype, device=position.device)
+    start = PhasePoint(position, p0, lt, grad)
+
+    def ratio_for(eps):
+        pp = leapfrog_step(target, start, eps)
+        r = hamiltonian(pp.logtarget, pp.momentum) - h0
+        return torch.where(torch.isnan(r), torch.full_like(r, -math.inf), r)
+
+    r = ratio_for(eps)
+    # a = +1 if the step is too small (accept prob > 0.5), else -1
+    a = torch.where(r > math.log(0.5), 1.0, -1.0).to(eps.dtype)
+    factor = torch.pow(2.0, a)
+    active = a * r > -a * math.log(2.0)
+    for _ in range(max_iter):
+        if not bool(active.any()):
+            break
+        eps = torch.where(active, eps * factor, eps)
+        active = active & (a * ratio_for(eps) > -a * math.log(2.0))
+    return eps

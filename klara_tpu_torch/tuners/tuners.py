@@ -1,0 +1,141 @@
+"""Step-size tuners as pure state updaters, batch-first.
+
+Counterpart of klara_tpu/tuners/tuners.py.  Every field of ``TuneState``
+carries a leading chains axis (C,), as the JAX state does under the job's
+vmap; the updates are elementwise, so one call updates every chain.
+``AcceptanceRateTuner`` and ``RobertsRosenthalTuner`` are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, NamedTuple
+
+import torch
+
+
+class TuneState(NamedTuple):
+    step: torch.Tensor         # step size, (C,)
+    accepted: torch.Tensor     # accepted proposals in the current period, float
+    proposed: torch.Tensor     # proposed in the current period, int32
+    totproposed: torch.Tensor  # total proposed across completed periods, int32
+    rate: torch.Tensor         # last computed acceptance rate (NaN before the first)
+    extra: Any = ()            # tuner-specific adaptation state
+
+
+@dataclasses.dataclass(frozen=True)
+class Tuner:
+    """Base: no-op tuner."""
+
+    period: int = dataclasses.field(default=100, kw_only=True)
+
+    def init(self, step0) -> TuneState:
+        step0 = torch.as_tensor(step0)
+        f = step0.dtype if step0.is_floating_point() else torch.float32
+        kw = dict(device=step0.device)
+        return TuneState(
+            step=step0,
+            accepted=torch.zeros(step0.shape, dtype=f, **kw),
+            proposed=torch.zeros(step0.shape, dtype=torch.int32, **kw),
+            totproposed=torch.zeros(step0.shape, dtype=torch.int32, **kw),
+            rate=torch.full(step0.shape, math.nan, dtype=f, **kw),
+            extra=self._extra_init(step0),
+        )
+
+    def _extra_init(self, step0):
+        return ()
+
+    def update(self, tune: TuneState, accept, accept_stat, burnin: int) -> TuneState:
+        """accept: 0/1 this step (or a pooled fraction); accept_stat: the
+        acceptance probability in [0, 1]."""
+        accepted = tune.accepted + torch.as_tensor(accept).to(tune.accepted.dtype)
+        proposed = tune.proposed + 1
+        # the period that straddles the burnin boundary still fires
+        at_boundary = (proposed % self.period == 0) & (tune.totproposed <= burnin)
+        rate = accepted / proposed.to(accepted.dtype)
+
+        new_step, new_extra = self._tune(
+            tune._replace(accepted=accepted, proposed=proposed, rate=rate),
+            accept_stat,
+            at_boundary,
+            burnin,
+        )
+        totproposed = torch.where(at_boundary, tune.totproposed + proposed, tune.totproposed)
+        accepted = torch.where(at_boundary, torch.zeros_like(accepted), accepted)
+        proposed = torch.where(at_boundary, torch.zeros_like(proposed), proposed)
+        rate = torch.where(at_boundary, rate, tune.rate)
+        return TuneState(new_step, accepted, proposed, totproposed, rate, new_extra)
+
+    def _tune(self, tune, accept_stat, at_boundary, burnin):
+        return tune.step, tune.extra
+
+    def finalize(self, tune: TuneState) -> TuneState:
+        """Freeze the tune state for post-adaptation sampling (identity here)."""
+        return tune
+
+
+@dataclasses.dataclass(frozen=True)
+class VanillaTuner(Tuner):
+    """No-op tuner."""
+
+
+class DualAveragingExtra(NamedTuple):
+    mu: torch.Tensor       # log(10 * step0)
+    eps_bar: torch.Tensor  # averaged step
+    h_bar: torch.Tensor    # averaged (target - a) statistic
+    count: torch.Tensor    # adaptation step counter, int32
+
+
+@dataclasses.dataclass(frozen=True)
+class DualAveragingTuner(Tuner):
+    """Hoffman-Gelman dual averaging (Algorithm 6): adapts every step for
+    the first ``nadapt`` iterations, then freezes step = εbar."""
+
+    targetrate: float = 0.8
+    nadapt: int = 1000
+    gamma: float = 0.05
+    t0: int = 10
+    kappa: float = 0.75
+
+    def _extra_init(self, step0):
+        f = step0.dtype if step0.is_floating_point() else torch.float32
+        step0 = step0.to(f)
+        return DualAveragingExtra(
+            mu=torch.log(10.0 * step0),
+            eps_bar=torch.ones_like(step0),
+            h_bar=torch.zeros_like(step0),
+            count=torch.zeros(step0.shape, dtype=torch.int32, device=step0.device),
+        )
+
+    def _tune(self, tune, accept_stat, at_boundary, burnin):
+        ex: DualAveragingExtra = tune.extra
+        count = ex.count + 1
+        cf = count.to(tune.step.dtype)
+        adapting = count <= self.nadapt
+
+        h_weight = 1.0 / (cf + self.t0)
+        h_bar = (1.0 - h_weight) * ex.h_bar + h_weight * (self.targetrate - accept_stat)
+        step = torch.exp(ex.mu - torch.sqrt(cf) * h_bar / self.gamma)
+        eps_weight = cf ** (-self.kappa)
+        eps_bar = torch.exp(
+            (1.0 - eps_weight) * torch.log(ex.eps_bar) + eps_weight * torch.log(step)
+        )
+        new_step = torch.where(adapting, step, ex.eps_bar)
+        new_extra = DualAveragingExtra(
+            mu=ex.mu,
+            eps_bar=torch.where(adapting, eps_bar, ex.eps_bar),
+            h_bar=torch.where(adapting, h_bar, ex.h_bar),
+            count=count,
+        )
+        return new_step, new_extra
+
+    def finalize(self, tune: TuneState) -> TuneState:
+        """step := εbar at the warmup/sampling boundary; a zero-length warmup
+        (count == 0) keeps the raw step."""
+        ex: DualAveragingExtra = tune.extra
+        return tune._replace(step=torch.where(ex.count > 0, ex.eps_bar, tune.step))
+
+    def set_mu_from_step(self, tune: TuneState) -> TuneState:
+        """Re-anchor μ = log(10·step) after an initial step-size search."""
+        return tune._replace(extra=tune.extra._replace(mu=torch.log(10.0 * tune.step)))
