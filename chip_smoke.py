@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port (klara_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                    # phases 1-8
+    python3 chip_smoke.py --profile-nuts DIR # also profile nuts_precond stage 2
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -13,11 +14,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
    settings of bench.py, at 16384 chains on the 100-dim synthetic logistic
    regression (1024 rows), 300 burnin and 2000 post draws, bf16 trace;
    check that K1 was launched, every draw is finite, the chunked rank-R̂
-   max is at most 1.02 and pooled acceptance lies in [0.6, 0.95]; print
-   the phase times, min ESS, ESS/s and leaps per draw.
+   max is at most 1.02, pooled acceptance lies in [0.6, 0.95] and K1
+   agrees with its plain version on the final positions; print
+   the phase times, min ESS, ESS/s and leaps per draw;
+5. run nuts_precond at the same size: the same stage 1, stage 2 whitened
+   NUTS(max_doublings=3) (bench.py's settings); check finiteness, R̂,
+   that stage 2 launched K1 exactly 7 times per step plus once at init,
+   K1 against its plain version on the final positions, and that the
+   posterior means agree with chees_precond's within 5 combined standard
+   errors;
+6. run 5 static-tree NUTS steps of the whitened target under
+   ``torch.cuda.set_sync_debug_mode("error")``: the step reads nothing back;
+7. run the looped tree (4096 chains from phase 5's final positions, 300
+   burnin + 1000 post); check R̂, that its mean tree size is within 10%
+   of phase 5's and K1 against its plain version on its final positions;
+   run both tree forms on the same draws from its final state (they must
+   agree exactly); time both forms from that state;
+8. run raw NUTS(max_doublings=5) at 4096 chains on the raw target, 300
+   burnin + 2400 post at thinning 2 (bench.py's nuts row); check R̂ and K1
+   against its plain version on its final positions; run both tree forms
+   on the same draws from its final state, where trees stop inside their
+   last subtree, so the looped form's checkpoint slots decide outcomes.
 
-The last two lines of stdout are the kernels' JSON summary and the device
-JSON line.  Matmuls run in full f32 (TF32 off), the precision the JAX
+With ``--profile-nuts DIR``, 200 stage-2 steps of phase 5's sampler are
+profiled after phase 6 (``profile_nuts``; DIR/profile_nuts.json).
+
+The last three lines of stdout are the kernels' JSON summary, the card
+line and the device JSON line.  Matmuls run in full f32 (TF32 off), the precision the JAX
 bench's 'high' setting approximates; the tolerances below assume it.
 """
 
@@ -40,6 +63,11 @@ RHAT_GATE = 1.02  # bench.py's mixing gate
 ACCEPT_RANGE = (0.6, 0.95)
 
 DIM, N_DATA, CHAINS, BURNIN, POST = 100, 1024, 16384, 300, 2000
+MEAN_Z_GATE = 5.0      # |Δ posterior mean| in combined standard errors
+SMALL_CHAINS, LOOPED_POST, RAW_POST = 4096, 1000, 2400
+# static vs looped tree on the same draws: positions and discrete outcomes
+# exact; `a` sums up to 31 f32 terms in another order
+TREE_STEPS, A_RTOL = 10, 1e-5
 
 
 def _card_line() -> str:
@@ -62,9 +90,22 @@ def _time_ms(fn, iters=50, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _k1_error(P, X, v, prior_var=100.0):
+    """K1 against its plain version on the same card inputs (phase-3
+    tolerances); returns the max abs error."""
+    from klara_tpu_torch.ops import logreg
+
+    val, grad = logreg.logreg_value_grad(P, X, v, prior_var)
+    rval, rgrad = logreg.logreg_value_grad_reference(P, X, v, prior_var)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(val, rval, rtol=VALUE_RTOL, atol=VALUE_ATOL)
+    torch.testing.assert_close(grad, rgrad, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    return max(float((val - rval).abs().max()), float((grad - rgrad).abs().max()))
+
+
 def check_k1(C, D, N, seed=0, timed=False):
-    """K1 against its plain version on the same card inputs; returns the
-    max abs error and, if ``timed``, both times in ms."""
+    """K1 against its plain version on random card inputs; returns the max
+    abs error and, if ``timed``, both times in ms."""
     from klara_tpu_torch.ops import logreg
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -72,13 +113,7 @@ def check_k1(C, D, N, seed=0, timed=False):
     y = (torch.rand(N, generator=g, device="cuda") < 0.5).float()
     P = 0.3 * torch.randn(C, D, generator=g, device="cuda")
     v = (X.T @ y).contiguous()
-    val, grad = logreg.logreg_value_grad(P, X, v, 100.0)
-    rval, rgrad = logreg.logreg_value_grad_reference(P, X, v, 100.0)
-    torch.cuda.synchronize()
-    torch.testing.assert_close(val, rval, rtol=VALUE_RTOL, atol=VALUE_ATOL)
-    torch.testing.assert_close(grad, rgrad, rtol=GRAD_RTOL, atol=GRAD_ATOL)
-    err = max(float((val - rval).abs().max()), float((grad - rgrad).abs().max()))
-    out = {"shape": [C, D, N], "max_abs_err": err}
+    out = {"shape": [C, D, N], "max_abs_err": _k1_error(P, X, v)}
     if timed:
         out["ms"] = _time_ms(lambda: logreg.logreg_value_grad(P, X, v, 100.0))
         out["plain_ms"] = _time_ms(lambda: logreg.logreg_value_grad_reference(P, X, v, 100.0))
@@ -86,52 +121,79 @@ def check_k1(C, D, N, seed=0, timed=False):
     return out
 
 
-def _ess_min_chunked(values, chol, chunk):
-    """min over dims of the chain-summed ESS of a whitened trace, mapped
-    back to x = y Lᵀ one chain chunk at a time (as bench.py)."""
+def _x_summary(values, chol, chunk):
+    """Per-dim posterior mean, sd and chain-summed ESS of a trace, mapped
+    to x = y Lᵀ (L = ``chol``; None: the identity) one chain chunk at a
+    time (as bench.py)."""
     import klara_tpu_torch as kt
 
-    total = None
+    s1 = s2 = ess = 0.0
     for s in range(0, values.shape[1], chunk):
-        e = kt.stats.ess(values[:, s:s + chunk].to(torch.float32) @ chol.T)
-        total = e if total is None else total + e
-    return float(total.min())
+        x = values[:, s:s + chunk].to(torch.float32)
+        if chol is not None:
+            x = x @ chol.T
+        ess = ess + kt.stats.ess(x)
+        x = x.to(torch.float64)
+        s1 = s1 + x.sum((0, 1))
+        s2 = s2 + (x * x).sum((0, 1))
+    n = values.shape[0] * values.shape[1]
+    mean = s1 / n
+    return mean, torch.sqrt(s2 / n - mean * mean), ess.to(torch.float64)
+
+
+def _chunk(n_draws, dim):
+    nfft = 1
+    while nfft < 2 * n_draws:
+        nfft *= 2
+    return min(2048, max(128, (1 << 28) // (nfft * dim)))
 
 
 def _rhat_max(values, chol, max_draws=512, dim_chunk=16, chains_cap=2048):
     """Max over coordinates of rank-R̂ on up to 512 evenly thinned draws of
-    up to 2048 chains, back-transformed per dim chunk (as bench.py)."""
+    up to 2048 chains, back-transformed per dim chunk (as bench.py; chol
+    None: the identity)."""
     import klara_tpu_torch as kt
 
     values = values[:, :chains_cap]
     step = max(1, values.shape[0] // max_draws)
     y = values[::step].to(torch.float32)
+    if chol is None:
+        return float(kt.stats.rhat_rank(y).max())
     return max(
         float(kt.stats.rhat_rank(y @ chol[s:s + dim_chunk].T).max())
         for s in range(0, values.shape[-1], dim_chunk)
     )
 
 
-def run_main_path(device="cuda", chains=CHAINS, dim=DIM, n_data=N_DATA, burnin=BURNIN,
-                  post=POST):
-    """chees_precond at bench size through the port's public entry points."""
+def _stage1_job(target, chains, dim, burnin, post):
+    """The chees_precond / nuts_precond job: stage-1 ChEES HMC settings of
+    bench.py, trace in bf16 past 4e9 bytes."""
     import klara_tpu_torch as kt
-    from klara_tpu_torch.models.examples import synthetic_logistic_regression
-    from klara_tpu_torch.ops import logreg
 
-    target, _, _ = synthetic_logistic_regression(dim=dim, n_data=n_data, device=device)
     s1 = kt.HMC(leapstep=0.05, nleaps=8, trajectory_length=0.5, jitter=0.9,
                 jitter_style="step", max_nleaps=256)
-    s2 = kt.HMC(leapstep=0.05, nleaps=8, trajectory_length=2.0, jitter=0.9,
-                jitter_style="step", max_nleaps=64)
     trace_dtype = "bfloat16" if post * chains * dim * 4 > 4e9 else None
-    job = kt.MCJob(
+    return kt.MCJob(
         target, s1, kt.MCRange(n_steps=burnin + post, burnin=burnin),
         tuner=kt.DualAveragingTuner(0.8, burnin), n_chains=chains,
         monitor=("value",), diagnostics=("accept", "nleaps"), pooled_tuning=True,
         mass_adaptation=True, mass_period=50, trace_dtype=trace_dtype,
         traj_adaptation=True,
     )
+
+
+def run_main_path(device="cuda", chains=CHAINS, dim=DIM, n_data=N_DATA, burnin=BURNIN,
+                  post=POST):
+    """chees_precond at bench size through the port's public entry points;
+    returns its results and the x-space (mean, sd, ESS) per dim."""
+    import klara_tpu_torch as kt
+    from klara_tpu_torch.models.examples import synthetic_logistic_regression
+    from klara_tpu_torch.ops import logreg
+
+    target, X, y = synthetic_logistic_regression(dim=dim, n_data=n_data, device=device)
+    s2 = kt.HMC(leapstep=0.05, nleaps=8, trajectory_length=2.0, jitter=0.9,
+                jitter_style="step", max_nleaps=64)
+    job = _stage1_job(target, chains, dim, burnin, post)
     gen = torch.Generator(device=device).manual_seed(42)
     x0 = 0.1 * torch.randn(chains, dim, generator=gen, device=device)
 
@@ -147,17 +209,12 @@ def run_main_path(device="cuda", chains=CHAINS, dim=DIM, n_data=N_DATA, burnin=B
     launches = logreg.KERNEL_LAUNCHES
 
     values, chol = chain.value, info["chol"]
-    if launches <= 0:
-        raise RuntimeError("the main path launched no K1 kernel")
     if tuple(values.shape) != (post, chains, dim):
         raise RuntimeError(f"trace shape {tuple(values.shape)}")
     if not bool(torch.isfinite(values).all()):
         raise RuntimeError("non-finite draws in the trace")
-    nfft = 1
-    while nfft < 2 * post:
-        nfft *= 2
-    chunk = min(2048, max(128, (1 << 28) // (nfft * dim)))
-    min_ess = _ess_min_chunked(values, chol, chunk)
+    summary = _x_summary(values, chol, _chunk(post, dim))
+    min_ess = float(summary[2].min())
     rhat = _rhat_max(values, chol)
     accept = float(kt.stats.acceptance(chain))
     leaps = float(chain["nleaps"].to(torch.float64).mean())
@@ -173,12 +230,349 @@ def run_main_path(device="cuda", chains=CHAINS, dim=DIM, n_data=N_DATA, burnin=B
         "eps_final": float(chain.final_state.tune.step.mean()),
         "trace_dtype": str(values.dtype),
         "k1_launches": launches,
+        "k1_max_abs_err_on_path": _k1_error(
+            (chain.final_state.position @ chol.T).contiguous(), X, (X.T @ y).contiguous()),
     }
     print(f"# chees_precond {chains}x{dim}x{n_data}: {json.dumps(res)}", flush=True)
     if rhat > RHAT_GATE:
         raise RuntimeError(f"rank-R-hat {rhat} > {RHAT_GATE}")
     if not ACCEPT_RANGE[0] <= accept <= ACCEPT_RANGE[1]:
         raise RuntimeError(f"acceptance {accept} outside {ACCEPT_RANGE}")
+    return res, summary
+
+
+def run_nuts_precond(chees_summary, device="cuda", chains=CHAINS, dim=DIM,
+                     n_data=N_DATA, burnin=BURNIN, post=POST):
+    """Phase 5: nuts_precond at bench size.  Returns its results and what
+    phases 6 and 7 start from."""
+    import dataclasses
+
+    import klara_tpu_torch as kt
+    from klara_tpu_torch.models.examples import synthetic_logistic_regression
+    from klara_tpu_torch.ops import logreg
+
+    stage2_start = []
+
+    @dataclasses.dataclass(frozen=True)
+    class MarkedNUTS(kt.NUTS):
+        """NUTS that notes the K1 count when stage 2 initialises it."""
+
+        def init(self, *args, **kw):
+            stage2_start.append(logreg.KERNEL_LAUNCHES)
+            return super().init(*args, **kw)
+
+    target, X, y = synthetic_logistic_regression(dim=dim, n_data=n_data, device=device)
+    job = _stage1_job(target, chains, dim, burnin, post)
+    gen = torch.Generator(device=device).manual_seed(42)
+    x0 = 0.1 * torch.randn(chains, dim, generator=gen, device=device)
+
+    logreg.KERNEL_LAUNCHES = 0
+    chain, timings, info = job.run_preconditioned(
+        gen, x0, stage2_replace=dict(sampler=MarkedNUTS(max_doublings=3),
+                                     traj_adaptation=False, diagnostics=("accept", "na")),
+        back_transform=False,
+    )
+    torch.cuda.synchronize()
+    launches = logreg.KERNEL_LAUNCHES
+    stage2 = launches - stage2_start[0]
+
+    values, chol = chain.value, info["chol"]
+    if tuple(values.shape) != (post, chains, dim):
+        raise RuntimeError(f"trace shape {tuple(values.shape)}")
+    if not bool(torch.isfinite(values).all()):
+        raise RuntimeError("non-finite draws in the nuts_precond trace")
+    mean, sd, ess = _x_summary(values, chol, _chunk(post, dim))
+    rhat = _rhat_max(values, chol)
+    na = float(chain["na"].to(torch.float64).mean())
+    m0, sd0, ess0 = chees_summary
+    z = float(((mean - m0).abs() / torch.sqrt(sd**2 / ess + sd0**2 / ess0)).max())
+    data = (X, (X.T @ y).contiguous())
+    k1_err = _k1_error((chain.final_state.position @ chol.T).contiguous(), *data)
+    res = {
+        "warmup_seconds": timings["warmup_seconds"],
+        "sampling_seconds": timings["sampling_seconds"],
+        "min_ess": float(ess.min()),
+        "ess_per_sec": float(ess.min()) / timings["sampling_seconds"],
+        "rhat_max": rhat,
+        "acceptance": float(kt.stats.acceptance(chain)),
+        "mean_na": na,
+        "eps_final": float(chain.final_state.tune.step.mean()),
+        "ms_per_step": 1e3 * timings["sampling_seconds"] / post,
+        "k1_launches": launches,
+        "k1_launches_stage2": stage2,
+        "k1_max_abs_err_on_path": k1_err,
+        "max_mean_z_vs_chees": z,
+    }
+    print(f"# nuts_precond {chains}x{dim}x{n_data}: {json.dumps(res)}", flush=True)
+    if rhat > RHAT_GATE:
+        raise RuntimeError(f"nuts_precond rank-R-hat {rhat} > {RHAT_GATE}")
+    if stage2 != 7 * (burnin + post) + 1:
+        raise RuntimeError(f"stage 2 launched K1 {stage2} times, expected "
+                           f"7 x {burnin + post} + 1 (init)")
+    if z > MEAN_Z_GATE:
+        raise RuntimeError(f"nuts_precond and chees_precond means differ by {z} se")
+    wjob = dataclasses.replace(info["whitened_job"], sampler=kt.NUTS(max_doublings=3))
+    return res, wjob, chain.final_state, chol, gen, data
+
+
+def check_no_host_read(wjob, state, gen, n_steps=5):
+    """Phase 6: static-tree steps under sync debug mode 'error'."""
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(n_steps):
+            state, _ = wjob.sampler.step(state, wjob.target, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(state.position).all()):
+        raise RuntimeError("non-finite positions after the sync-checked steps")
+    print(f"# static NUTS step: {n_steps} steps with no host read", flush=True)
+
+
+def profile_nuts(wjob, state, gen, out_dir, window=200, warm=20):
+    """Opt-in: ``window`` stage-2 sampling steps of nuts_precond from phase
+    5's final state under torch.profiler, with ``leapfrog_step`` and
+    ``NUTS.draws`` wrapped in record_function ranges here only.  Device time
+    splits into K1, the whitening GEMMs, the leapfrog's elementwise ops, the
+    draws and the rest: the NUTS bookkeeping (H, slice and divergence tests,
+    take, candidate and edge selects, alive/n/a/na/div, merge u-turn dots,
+    doubling swap) and the trace write.  The next ``window`` steps run
+    without the profiler for the wall time.  Writes profile_nuts.json and
+    profile_nuts.txt (key_averages) under ``out_dir``."""
+    import klara_tpu_torch as kt
+    from klara_tpu_torch.samplers import nuts as nuts_mod
+
+    def device_ms(e):
+        for name in ("device_time_total", "cuda_time_total"):
+            if getattr(e, name, None) is not None:
+                return float(getattr(e, name)) / 1e3
+        return 0.0
+
+    buffers = ({}, {})
+    i0 = wjob.mcrange.burnin + warm
+    state = wjob._loop(state, gen, wjob.mcrange.burnin, i0, False, buffers)
+    torch.cuda.synchronize()
+    leap0, draws0 = nuts_mod.leapfrog_step, kt.NUTS.draws
+
+    def leap(*a, **k):
+        with torch.profiler.record_function("nuts::leapfrog_step"):
+            return leap0(*a, **k)
+
+    def draws(self, *a, **k):
+        with torch.profiler.record_function("nuts::draws"):
+            return draws0(self, *a, **k)
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    nuts_mod.leapfrog_step, kt.NUTS.draws = leap, draws
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            state = wjob._loop(state, gen, i0, i0 + window, False, buffers)
+            torch.cuda.synchronize()
+            wall_profiled = 1e3 * (time.perf_counter() - t0)
+    finally:
+        nuts_mod.leapfrog_step, kt.NUTS.draws = leap0, draws0
+    t0 = time.perf_counter()
+    wjob._loop(state, gen, i0 + window, i0 + 2 * window, False, buffers)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+
+    events = prof.events()
+    # device kernels, without the device copies of the user ranges
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")
+               and not e.name.startswith("nuts::")]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    k1 = sum(e.time_range.elapsed_us() for e in kernels if "logreg" in e.name) / 1e3
+    gemms = [e for e in kernels if any(s in e.name.lower() for s in ("gemm", "cutlass", "xmma"))]
+    gemm = sum(e.time_range.elapsed_us() for e in gemms) / 1e3
+
+    def range_ms(name):
+        return sum(device_ms(e) for e in events
+                   if e.name == name and str(e.device_type).endswith("CPU"))
+
+    leap_range, draws_ms = range_ms("nuts::leapfrog_step"), range_ms("nuts::draws")
+    # K1 launches through ctypes, not through an aten op, so the profiler may
+    # not charge it to the enclosing range; K1 alone is larger than the rest
+    k1_in_range = leap_range >= k1 + gemm
+    leap_elementwise = leap_range - gemm - (k1 if k1_in_range else 0.0)
+    bookkeeping = busy - k1 - gemm - leap_elementwise - draws_ms
+    res = {
+        "window_steps": window,
+        "device_kernels": len(kernels),
+        "device_busy_ms": busy,
+        "wall_ms_profiled": wall_profiled,
+        "wall_ms": wall,
+        "idle_share_profiled": 1.0 - busy / wall_profiled,
+        # profiled device busy time over the unprofiled window's wall time
+        "idle_share_est": 1.0 - busy / wall,
+        "k1_ms": k1,
+        "k1_kernels": sum("logreg" in e.name for e in kernels),
+        "gemm_ms": gemm,
+        "gemm_kernels": len(gemms),
+        "k1_in_leapfrog_range": k1_in_range,
+        "leapfrog_elementwise_ms": leap_elementwise,
+        "draws_ms": draws_ms,
+        "bookkeeping_ms": bookkeeping,
+        "bookkeeping_share_of_busy": bookkeeping / busy,
+        "eps_mean": float(state.tune.step.mean()),
+    }
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "profile_nuts.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    with open(os.path.join(out_dir, "profile_nuts.txt"), "w") as f:
+        try:
+            f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=60))
+        except (KeyError, AttributeError):  # torch versions before the device_* names
+            f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=60))
+    print(f"# nuts_precond stage-2 profile: {json.dumps(res)}", flush=True)
+    if leap_elementwise < 0 or bookkeeping < 0:
+        raise RuntimeError("profile: device time attribution does not add up")
+    return res
+
+
+def check_trees_agree(state, target, gen, max_doublings, n_steps=TREE_STEPS):
+    """Both tree forms on the same draws from ``state``, ``n_steps`` steps:
+    per chain the leapfrog arithmetic is the same, so the new positions
+    and the discrete outcomes must be equal.  Returns the number of trees
+    that stopped inside their last subtree (na < 2^ndoublings − 1), where
+    the looped form's checkpoint slots decide the outcome."""
+    import klara_tpu_torch as kt
+
+    static = kt.NUTS(max_doublings=max_doublings, tree_impl="static")
+    looped = kt.NUTS(max_doublings=max_doublings, tree_impl="looped")
+    stopped_inside = 0
+    for _ in range(n_steps):
+        draws = static.draws(gen, state)
+        new_s, info_s = static.step(state, target, draws=draws)
+        new_l, info_l = looped.step(state, target, draws=draws)
+        for name in ("ndoublings", "na", "divergent"):
+            if not torch.equal(info_s.extras[name], info_l.extras[name]):
+                raise RuntimeError(f"depth {max_doublings}: the tree forms differ in {name}")
+        if not torch.equal(info_s.accept, info_l.accept):
+            raise RuntimeError(f"depth {max_doublings}: the tree forms differ in accept")
+        if not torch.equal(new_s.position, new_l.position):
+            raise RuntimeError(f"depth {max_doublings}: the tree forms differ in position")
+        torch.testing.assert_close(info_s.extras["a"], info_l.extras["a"], rtol=A_RTOL, atol=0)
+        na, nd = info_s.extras["na"], info_s.extras["ndoublings"]
+        stopped_inside += int((na < (1 << nd) - 1).sum())
+        state = new_s
+    print(f"# static = looped tree at depth {max_doublings}: {n_steps} steps x "
+          f"{state.position.shape[0]} chains, {stopped_inside} trees stopped "
+          f"inside their last subtree", flush=True)
+    return stopped_inside
+
+
+def _ms_per_step(sampler, state, target, gen, n_steps=100):
+    for _ in range(5):
+        sampler.step(state, target, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        state, _ = sampler.step(state, target, gen)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n_steps
+
+
+def run_nuts_looped(wjob, state, chol, gen, na_static, data, chains=SMALL_CHAINS,
+                    burnin=BURNIN, post=LOOPED_POST):
+    """Phase 7: the looped tree on the whitened target from phase 5's
+    first ``chains`` final positions; then K1 on its final positions
+    (``data``: X and Xᵀy), both tree forms on the same draws and both timed
+    from that state."""
+    import dataclasses
+
+    import klara_tpu_torch as kt
+    from klara_tpu_torch.ops import logreg
+
+    looped = kt.NUTS(max_doublings=3, tree_impl="looped")
+    job = dataclasses.replace(
+        wjob, sampler=looped, n_chains=chains, trace_dtype=None,
+        mcrange=kt.MCRange(n_steps=burnin + post, burnin=burnin),
+    )
+    y0 = state.position[:chains].contiguous()
+    logreg.KERNEL_LAUNCHES = 0
+    chain, timings = job.run_phased(gen, y0)
+    torch.cuda.synchronize()
+    launches = logreg.KERNEL_LAUNCHES
+
+    values = chain.value
+    if not bool(torch.isfinite(values).all()):
+        raise RuntimeError("non-finite draws in the looped-tree trace")
+    rhat = _rhat_max(values, chol)
+    na = float(chain["na"].to(torch.float64).mean())
+    end = chain.final_state
+    res = {
+        "warmup_seconds": timings["warmup_seconds"],
+        "sampling_seconds": timings["sampling_seconds"],
+        "rhat_max": rhat,
+        "mean_na": na,
+        "eps_final": float(chain.final_state.tune.step.mean()),
+        "k1_launches": launches,
+        "k1_max_abs_err_on_path": _k1_error((end.position @ chol.T).contiguous(), *data),
+        "trees_stopped_inside": check_trees_agree(end, job.target, gen, 3),
+        "ms_per_step_looped": _ms_per_step(looped, end, job.target, gen),
+        "ms_per_step_static": _ms_per_step(wjob.sampler, end, job.target, gen),
+    }
+    print(f"# nuts_looped {chains}x{DIM}: {json.dumps(res)}", flush=True)
+    if rhat > RHAT_GATE:
+        raise RuntimeError(f"looped-tree rank-R-hat {rhat} > {RHAT_GATE}")
+    if abs(na - na_static) > 0.1 * na_static:
+        raise RuntimeError(f"looped mean na {na} vs static {na_static}: over 10% apart")
+    return res
+
+
+def run_nuts_raw(device="cuda", chains=SMALL_CHAINS, dim=DIM, n_data=N_DATA,
+                 burnin=BURNIN, post=RAW_POST, thinning=2):
+    """Phase 8: bench.py's raw nuts row at ``chains`` chains; then K1 on
+    its final positions and both tree forms on the same draws from them."""
+    import klara_tpu_torch as kt
+    from klara_tpu_torch.models.examples import synthetic_logistic_regression
+    from klara_tpu_torch.ops import logreg
+
+    target, X, y = synthetic_logistic_regression(dim=dim, n_data=n_data, device=device)
+    n_stored = post // thinning
+    job = kt.MCJob(
+        target, kt.NUTS(max_doublings=5),
+        kt.MCRange(n_steps=burnin + post, burnin=burnin, thinning=thinning),
+        tuner=kt.DualAveragingTuner(0.8, burnin), n_chains=chains,
+        monitor=("value",), diagnostics=("accept", "na"), pooled_tuning=True,
+        mass_adaptation=True, mass_period=50,
+        trace_dtype="bfloat16" if n_stored * chains * dim * 4 > 4e9 else None,
+    )
+    gen = torch.Generator(device=device).manual_seed(42)
+    x0 = 0.1 * torch.randn(chains, dim, generator=gen, device=device)
+    logreg.KERNEL_LAUNCHES = 0
+    chain, timings = job.run_phased(gen, x0)
+    torch.cuda.synchronize()
+    launches = logreg.KERNEL_LAUNCHES
+
+    values = chain.value
+    if not bool(torch.isfinite(values).all()):
+        raise RuntimeError("non-finite draws in the raw nuts trace")
+    _, _, ess = _x_summary(values, None, _chunk(values.shape[0], dim))
+    rhat = _rhat_max(values, None)
+    res = {
+        "warmup_seconds": timings["warmup_seconds"],
+        "sampling_seconds": timings["sampling_seconds"],
+        "min_ess": float(ess.min()),
+        "ess_per_sec": float(ess.min()) / timings["sampling_seconds"],
+        "rhat_max": rhat,
+        "acceptance": float(kt.stats.acceptance(chain)),
+        "leaves_per_step": float(chain["na"].to(torch.float64).mean()),
+        "eps_final": float(chain.final_state.tune.step.mean()),
+        "k1_launches": launches,
+        "k1_max_abs_err_on_path": _k1_error(
+            chain.final_state.position.contiguous(), X, (X.T @ y).contiguous()),
+        "trees_stopped_inside": check_trees_agree(chain.final_state, target, gen, 5),
+    }
+    print(f"# nuts {chains}x{dim}x{n_data}: {json.dumps(res)}", flush=True)
+    if rhat > RHAT_GATE:
+        raise RuntimeError(f"raw nuts rank-R-hat {rhat} > {RHAT_GATE}")
+    if res["trees_stopped_inside"] == 0:
+        raise RuntimeError("no depth-5 tree stopped inside its last subtree: the "
+                           "tree-form check did not reach the checkpoint slots")
     return res
 
 
@@ -199,17 +593,34 @@ def main():
     print(f"# K1 build: {time.perf_counter() - t0:.1f} s", flush=True)
     print("# " + _build.build_log.strip().replace("\n", "\n# "), flush=True)
 
-    check_k1(5, 7, 300)
+    small = check_k1(5, 7, 300)
     big = check_k1(CHAINS, DIM, N_DATA, timed=True)
-    main_path = run_main_path()
+    chees, chees_summary = run_main_path()
+    nuts, wjob, state, chol, gen, data = run_nuts_precond(chees_summary)
+    check_no_host_read(wjob, state, gen)
+    if "--profile-nuts" in sys.argv[1:]:
+        profile_nuts(wjob, state, gen, sys.argv[sys.argv.index("--profile-nuts") + 1])
+    looped = run_nuts_looped(wjob, state, chol, gen, nuts["mean_na"], data)
+    raw = run_nuts_raw()
 
+    by_path = {"chees_precond": chees["k1_launches"], "nuts_precond": nuts["k1_launches"],
+               "nuts_looped": looped["k1_launches"], "nuts": raw["k1_launches"]}
+    for path, n in by_path.items():
+        if n <= 0:
+            raise RuntimeError(f"the {path} path launched no K1 kernel")
+    err_by_path = {"chees_precond": chees["k1_max_abs_err_on_path"],
+                   "nuts_precond": nuts["k1_max_abs_err_on_path"],
+                   "nuts_looped": looped["k1_max_abs_err_on_path"],
+                   "nuts": raw["k1_max_abs_err_on_path"]}
     kernels = {"kernels": [{
         "name": "K1 logreg_value_grad",
         "route": "cuda",
         "source": "klara_tpu_torch/ops/csrc/logreg.cu",
         "replaces": "klara_tpu/ops/logreg.py:120",
-        "launches": main_path["k1_launches"],
-        "max_abs_err": big["max_abs_err"],
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
+        "max_abs_err": max([small["max_abs_err"], big["max_abs_err"], *err_by_path.values()]),
+        "max_abs_err_by_path": err_by_path,
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
     }]}

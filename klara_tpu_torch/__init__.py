@@ -11,7 +11,7 @@ from klara_tpu_torch.core.target import Target, bounded_target, whiten_target
 from klara_tpu_torch.jobs.chain import Chain
 from klara_tpu_torch.jobs.job import MCJob, run
 from klara_tpu_torch.jobs.range import MCRange
-from klara_tpu_torch.samplers import HMC
+from klara_tpu_torch.samplers import HMC, NUTS, NUTSState
 from klara_tpu_torch.tuners import DualAveragingTuner, VanillaTuner
 from klara_tpu_torch import stats
 
@@ -26,6 +26,8 @@ __all__ = [
     "MCRange",
     "run",
     "HMC",
+    "NUTS",
+    "NUTSState",
     "VanillaTuner",
     "DualAveragingTuner",
     "stats",

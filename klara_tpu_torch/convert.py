@@ -14,6 +14,7 @@ import torch
 from klara_tpu_torch.jobs.chain import Chain
 from klara_tpu_torch.models.examples import logistic_regression_target
 from klara_tpu_torch.samplers.hmc import HMCState
+from klara_tpu_torch.samplers.nuts import NUTSState
 from klara_tpu_torch.tuners.tuners import DualAveragingExtra, TuneState
 
 
@@ -52,6 +53,17 @@ def hmc_state_from_numpy(state, device=None) -> HMCState:
         log_traj=_t(state.log_traj, device),
         traj_m=_t(state.traj_m, device),
         traj_v=_t(state.traj_v, device),
+    )
+
+
+def nuts_state_from_numpy(state, device=None) -> NUTSState:
+    """A chains-batched JAX ``NUTSState`` with numpy leaves -> the port's."""
+    return NUTSState(
+        position=_t(state.position, device),
+        logtarget=_t(state.logtarget, device),
+        gradlogtarget=_t(state.gradlogtarget, device),
+        inv_mass=_t(state.inv_mass, device),
+        tune=tune_state_from_numpy(state.tune, device),
     )
 
 

@@ -14,12 +14,14 @@ from typing import NamedTuple
 
 import torch
 
+from klara_tpu_torch.tuners.tuners import DualAveragingTuner
+
 
 def hamiltonian(logtarget, momentum, inv_mass=None):
     """H(x, p) in log-target convention: logtarget − ½ pᵀM⁻¹p, per chain."""
     if inv_mass is None:
-        return logtarget - 0.5 * (momentum * momentum).sum(-1)
-    return logtarget - 0.5 * (inv_mass * momentum * momentum).sum(-1)
+        return logtarget - 0.5 * torch.square(momentum).sum(-1)
+    return logtarget - 0.5 * (inv_mass * torch.square(momentum)).sum(-1)
 
 
 def sample_momentum(generator, position, inv_mass=None):
@@ -107,3 +109,23 @@ def find_reasonable_step_size(target, position, generator=None, max_iter=100,
         eps = torch.where(active, eps * factor, eps)
         active = active & (a * ratio_for(eps) > -a * math.log(2.0))
     return eps
+
+
+def init_tune(tuner, target, position, leapstep, generator=None, step_size=None,
+              momentum=None):
+    """The tuner state a gradient sampler starts from: ε = ``step_size``
+    if given, else the step-size search under dual averaging (``momentum``
+    feeds it; tests replay draws), else ``leapstep``.  Dual averaging then
+    sets its μ from ε."""
+    C = position.shape[0]
+    kw = dict(dtype=position.dtype, device=position.device)
+    if step_size is not None:
+        step0 = torch.full((C,), float(step_size), **kw)
+    elif isinstance(tuner, DualAveragingTuner):
+        step0 = find_reasonable_step_size(target, position, generator, momentum=momentum)
+    else:
+        step0 = torch.full((C,), float(leapstep), **kw)
+    tune = tuner.init(step0)
+    if isinstance(tuner, DualAveragingTuner):
+        tune = tuner.set_mu_from_step(tune)
+    return tune

@@ -17,8 +17,8 @@ import torch
 from klara_tpu_torch.samplers.base import Info, Sampler, metropolis_accept
 from klara_tpu_torch.samplers.hamiltonian import (
     PhasePoint,
-    find_reasonable_step_size,
     hamiltonian,
+    init_tune,
     leapfrog,
     sample_momentum,
 )
@@ -78,20 +78,10 @@ class HMC(Sampler):
              momentum=None):
         """``momentum`` feeds the step-size search (tests replay draws)."""
         lt, grad = target.logdensity_and_grad(position)
-        tuner = tuner or self.default_tuner()
+        tune = init_tune(tuner or self.default_tuner(), target, position, self.leapstep,
+                         generator, step_size, momentum)
         C = position.shape[0]
         kw = dict(dtype=position.dtype, device=position.device)
-        if step_size is not None:
-            step0 = torch.full((C,), float(step_size), **kw)
-        elif isinstance(tuner, DualAveragingTuner):
-            step0 = find_reasonable_step_size(
-                target, position, generator, momentum=momentum
-            )
-        else:
-            step0 = torch.full((C,), float(self.leapstep), **kw)
-        tune = tuner.init(step0)
-        if isinstance(tuner, DualAveragingTuner):
-            tune = tuner.set_mu_from_step(tune)
         return HMCState(
             position, lt, grad, torch.ones_like(position), tune,
             log_traj=torch.log(torch.full((C,), float(self._lambda0()), **kw)),

@@ -122,3 +122,17 @@ def test_hmc_step_matches_jax(problem):
     _close(new.position, new_ref.position, 2e-5, 2e-5)
     _close(new.logtarget, new_ref.logtarget, 2e-5, 1e-4)
     _close(new.gradlogtarget, new_ref.gradlogtarget, 2e-5, 1e-4)
+
+
+def test_hamiltonian_matches_jax_bitwise():
+    """H decides discrete outcomes (the Metropolis accept, NUTS's slice
+    test u <= H), so the port copies JAX's f32 order, M⁻¹·p² and not
+    (M⁻¹·p)·p.  With one coordinate per chain there is no reduction order
+    to differ, and the two agree exactly."""
+    rng = np.random.default_rng(0)
+    lt = (100.0 * rng.standard_normal(4096)).astype(np.float32)
+    p = rng.standard_normal((4096, 1)).astype(np.float32)
+    m = rng.uniform(0.1, 3.0, (4096, 1)).astype(np.float32)
+    ref = jax.vmap(jham.hamiltonian)(jnp.asarray(lt), jnp.asarray(p), jnp.asarray(m))
+    out = tham.hamiltonian(torch.from_numpy(lt), torch.from_numpy(p), torch.from_numpy(m))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
