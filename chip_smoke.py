@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch port (klara_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                    # phases 1-8
-    python3 chip_smoke.py --profile-nuts DIR # also profile nuts_precond stage 2
+    python3 chip_smoke.py                # phases 1-11
+    python3 chip_smoke.py --profile DIR  # also profile nuts_precond stage 2 and the Gibbs sweep
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -34,10 +34,33 @@ Phases, each of which raises on failure (the script then exits non-zero):
    burnin + 2400 post at thinning 2 (bench.py's nuts row); check R̂ and K1
    against its plain version on its final positions; run both tree forms
    on the same draws from its final state, where trees stop inside their
-   last subtree, so the looped form's checkpoint slots decide outcomes.
+   last subtree, so the looped form's checkpoint slots decide outcomes;
+9. run bench.py's rats Gibbs row: ``GibbsJob`` on the conjugate rats model
+   at 4096 chains, 30000 sweeps (500 burnin), the five hyperparameters
+   monitored, after a short warm-up run; check that every carried value and
+   trace lives on the card, every draw is finite, rank-R̂ max ≤ 1.02 and the
+   posterior means of alpha_c and beta_c match the published BUGS values;
+   print seconds, sweeps/s, chain-sweeps/s, min ESS, ESS per draw and ESS/s;
+10. run 5 conjugate sweeps from phase 9's final values under
+   ``torch.cuda.set_sync_debug_mode("error")``: the sweep reads nothing back;
+11. run the rats model with ``alpha`` as a nested HMC block on its
+   conditional (``rats_gibbs_model(nested_alpha=True)``: MCMC-within-Gibbs
+   with the settings of benchmarks/gibbs_hoist_probe.py; every other block
+   is phase 9's) at 4096 chains, 2000 sweeps (200
+   burnin): the hoisted step-size search, per-chain ε through ``init_tune``
+   and the nested dual-averaging tuner on the card; check R̂, the nested
+   acceptance, that the posterior means of alpha_c and beta_c agree with
+   phase 9's within 5 combined standard errors, and those of alpha_c,
+   beta_c and sigma2_c with the JAX package's for the same settings
+   (``JAX_NESTED``).
 
-With ``--profile-nuts DIR``, 200 stage-2 steps of phase 5's sampler are
-profiled after phase 6 (``profile_nuts``; DIR/profile_nuts.json).
+The Gibbs paths launch no K1 (their sweep is plain torch ops in both
+packages); the kernels line records their K1 count, 0.
+
+With ``--profile DIR``, 200 stage-2 steps of phase 5's sampler are
+profiled after phase 6 (``profile_nuts``; DIR/profile_nuts.json) and 200
+conjugate rats sweeps after phase 10 (``profile_gibbs``;
+DIR/profile_gibbs.json).
 
 The last three lines of stdout are the kernels' JSON summary, the card
 line and the device JSON line.  Matmuls run in full f32 (TF32 off), the precision the JAX
@@ -47,6 +70,7 @@ bench's 'high' setting approximates; the tolerances below assume it.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -65,6 +89,23 @@ ACCEPT_RANGE = (0.6, 0.95)
 DIM, N_DATA, CHAINS, BURNIN, POST = 100, 1024, 16384, 300, 2000
 MEAN_Z_GATE = 5.0      # |Δ posterior mean| in combined standard errors
 SMALL_CHAINS, LOOPED_POST, RAW_POST = 4096, 1000, 2400
+# bench.py's gibbs row (GIBBS_CHAINS, GIBBS_STEPS, GIBBS_BURNIN)
+GIBBS_CHAINS, GIBBS_SWEEPS, GIBBS_BURNIN, GIBBS_WARM = 4096, 30000, 500, 1000
+GIBBS_MONITOR = ("alpha_c", "beta_c", "sigma2_c", "sigma2_a", "sigma2_b")
+# published BUGS posterior means of the rats example, with the gate's width
+BUGS_MEANS = {"alpha_c": (242.5, 1.0), "beta_c": (6.19, 0.1)}
+NESTED_SWEEPS, NESTED_BURNIN = 2000, 200
+NESTED_ACCEPT_RANGE = (0.2, 0.99)
+# The nested block's dual averaging restarts every sweep and adapts in all 4
+# of its steps, so the sweep is not exactly invariant: it moves sigma2_c's
+# stationary mean up by ~0.4% in both packages.  Phase 11 holds alpha_c and
+# beta_c to the conjugate posterior (phase 9) and all three to the JAX
+# package's run of this model and these settings (posterior mean, MCSE; 4096
+# chains x 2000 sweeps, 200 burnin), which
+# ``PYTHONPATH=. python tests/test_torch_gibbs_nested.py`` prints; that
+# file's test holds the two packages' nested runs together at 128 chains.
+JAX_NESTED = {"alpha_c": (242.65524, 0.00112), "beta_c": (6.185698, 0.0000507),
+              "sigma2_c": (37.44109, 0.00411)}
 # static vs looped tree on the same draws: positions and discrete outcomes
 # exact; `a` sums up to 31 f32 terms in another order
 TREE_STEPS, A_RTOL = 10, 1e-5
@@ -576,6 +617,203 @@ def run_nuts_raw(device="cuda", chains=SMALL_CHAINS, dim=DIM, n_data=N_DATA,
     return res
 
 
+def _gibbs_summary(chains):
+    """Per monitored key: posterior mean, sd, chain-summed ESS (chunked over
+    chains) and rank-R̂ (thinned, as ``_rhat_max``)."""
+    out = {}
+    for k, v in chains.samples.items():
+        v = v[..., None]
+        mean, sd, ess = _x_summary(v, None, _chunk(v.shape[0], 1))
+        out[k] = {"mean": float(mean[0]), "sd": float(sd[0]), "ess": float(ess[0]),
+                  "rhat": _rhat_max(v, None)}
+    return out
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed_gibbs(job, gen, v0, device):
+    t0 = time.perf_counter()
+    chains = job.run(gen, v0)
+    _sync(device)
+    return chains, time.perf_counter() - t0
+
+
+def run_gibbs_rats(device="cuda", chains=GIBBS_CHAINS, sweeps=GIBBS_SWEEPS,
+                   burnin=GIBBS_BURNIN, warm=GIBBS_WARM):
+    """Phase 9: bench.py's rats Gibbs row.  Returns its results, the job,
+    the last run's chains, v0 and the generator."""
+    import klara_tpu_torch as kt
+    from klara_tpu_torch.models.examples import rats_gibbs_model
+    from klara_tpu_torch.ops import logreg
+
+    model, v0 = rats_gibbs_model(device=device)
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    def job(n):
+        return kt.GibbsJob(model, {}, kt.MCRange(n_steps=n, burnin=burnin), n_chains=chains,
+                           monitor=GIBBS_MONITOR, device=device)
+
+    _, warm_secs = _timed_gibbs(job(burnin + warm), gen, v0, device)
+    full = job(sweeps)
+    logreg.KERNEL_LAUNCHES = 0
+    out, secs = _timed_gibbs(full, gen, v0, device)
+    launches = logreg.KERNEL_LAUNCHES
+
+    where = {t.device.type for t in (*out.samples.values(), *out.final_values.values())}
+    if where != {torch.device(device).type}:
+        raise RuntimeError(f"Gibbs values and traces live on {where}, not {device}")
+    for k, v in out.samples.items():
+        if tuple(v.shape) != (sweeps - burnin, chains) or not bool(torch.isfinite(v).all()):
+            raise RuntimeError(f"rats trace {k}: shape {tuple(v.shape)} or non-finite draws")
+    summary = _gibbs_summary(out)
+    min_ess = min(s["ess"] for s in summary.values())
+    rhat = max(s["rhat"] for s in summary.values())
+    n_draws = (sweeps - burnin) * chains
+    res = {
+        "warmup_run_sweeps": burnin + warm,
+        "warmup_run_seconds": warm_secs,
+        "seconds": secs,
+        "sweeps_per_sec": sweeps / secs,
+        "chain_sweeps_per_sec": sweeps * chains / secs,
+        "ms_per_sweep": 1e3 * secs / sweeps,
+        "min_ess": min_ess,
+        "ess_per_draw": min_ess / n_draws,
+        "ess_per_sec": min_ess / secs,
+        "rhat_max": rhat,
+        "k1_launches": launches,
+        "by_key": summary,
+    }
+    print(f"# gibbs_rats {chains} chains x {sweeps} sweeps: {json.dumps(res)}", flush=True)
+    if rhat > RHAT_GATE:
+        raise RuntimeError(f"rats Gibbs rank-R-hat {rhat} > {RHAT_GATE}")
+    for k, (want, width) in BUGS_MEANS.items():
+        if abs(summary[k]["mean"] - want) > width:
+            raise RuntimeError(f"rats posterior mean of {k} {summary[k]['mean']} is not "
+                               f"{want} ± {width} (BUGS)")
+    return res, full, out, v0, gen
+
+
+def check_gibbs_no_host_read(job, chains, v0, gen, n_sweeps=5):
+    """Phase 10: conjugate sweeps from phase 9's final values under sync
+    debug mode 'error'."""
+    values = job._initial_values({**v0, **chains.final_values}, prebatched=True)
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(n_sweeps):
+            values, _ = job._sweep(values, gen, {})
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(values[k]).all()) for k in chains.final_values):
+        raise RuntimeError("non-finite values after the sync-checked sweeps")
+    print(f"# rats Gibbs sweep: {n_sweeps} sweeps with no host read", flush=True)
+
+
+def profile_gibbs(job, chains, v0, gen, out_dir, window=200, warm=20):
+    """Opt-in: ``window`` conjugate rats sweeps from phase 9's final values
+    under torch.profiler (device kernels per sweep, device busy time), then
+    ``window`` more without it for the wall time.  Writes
+    profile_gibbs.json and profile_gibbs.txt (key_averages) under
+    ``out_dir``."""
+    values = job._initial_values({**v0, **chains.final_values}, prebatched=True)
+    for _ in range(warm):
+        values, _ = job._sweep(values, gen, {})
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(window):
+            values, _ = job._sweep(values, gen, {})
+        torch.cuda.synchronize()
+        wall_profiled = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    for _ in range(window):
+        values, _ = job._sweep(values, gen, {})
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    res = {
+        "window_sweeps": window,
+        "device_kernels_per_sweep": len(kernels) / window,
+        "device_busy_us_per_sweep": 1e3 * busy / window,
+        "wall_ms_per_sweep_profiled": wall_profiled / window,
+        "wall_ms_per_sweep": wall / window,
+        "idle_share_profiled": 1.0 - busy / wall_profiled,
+        # profiled device busy time over the unprofiled window's wall time
+        "idle_share_est": 1.0 - busy / wall,
+    }
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "profile_gibbs.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    with open(os.path.join(out_dir, "profile_gibbs.txt"), "w") as f:
+        try:
+            f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+        except (KeyError, AttributeError):  # torch versions before the device_* names
+            f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
+    print(f"# gibbs_rats sweep profile: {json.dumps(res)}", flush=True)
+    return res
+
+
+def run_gibbs_nested(conj_summary, device="cuda", chains=GIBBS_CHAINS, sweeps=NESTED_SWEEPS,
+                     burnin=NESTED_BURNIN):
+    """Phase 11: MCMC-within-Gibbs on the card, against phase 9's posterior."""
+    import klara_tpu_torch as kt
+    from klara_tpu_torch.models.examples import rats_gibbs_model
+    from klara_tpu_torch.ops import logreg
+
+    model, v0 = rats_gibbs_model(device=device, nested_alpha=True)
+    spec = kt.Nested(kt.HMC(leapstep=0.05, nleaps=4), n_steps=4,
+                     tuner=kt.DualAveragingTuner(0.8, 4))
+    job = kt.GibbsJob(model, {"alpha": spec}, kt.MCRange(n_steps=sweeps, burnin=burnin),
+                      n_chains=chains, monitor=GIBBS_MONITOR, device=device)
+    if not job._needs_step_hoist(job.sweep["alpha"]):
+        raise RuntimeError("the nested HMC block does not take the hoisted step-size search")
+    gen = torch.Generator(device=device).manual_seed(1)
+    logreg.KERNEL_LAUNCHES = 0
+    out, secs = _timed_gibbs(job, gen, v0, device)
+    launches = logreg.KERNEL_LAUNCHES
+    for v in (*out.samples.values(), out["alpha.accept"]):
+        if not bool(torch.isfinite(v).all()):
+            raise RuntimeError("non-finite draws in the nested rats trace")
+    summary = _gibbs_summary(out)
+    rhat = max(s["rhat"] for s in summary.values())
+    accept = float(out["alpha.accept"].to(torch.float64).mean())
+    se = {k: summary[k]["sd"] / math.sqrt(summary[k]["ess"]) for k in JAX_NESTED}
+    z_conj = {k: abs(summary[k]["mean"] - conj_summary[k]["mean"]) / math.hypot(
+        se[k], conj_summary[k]["sd"] / math.sqrt(conj_summary[k]["ess"])) for k in JAX_NESTED}
+    z_jax = {k: abs(summary[k]["mean"] - m) / math.hypot(se[k], s)
+             for k, (m, s) in JAX_NESTED.items()}
+    res = {
+        "seconds": secs,
+        "sweeps_per_sec": sweeps / secs,
+        "ms_per_sweep": 1e3 * secs / sweeps,
+        "min_ess": min(s["ess"] for s in summary.values()),
+        "rhat_max": rhat,
+        "alpha_accept": accept,
+        "mean_z_vs_conjugate": z_conj,
+        "mean_z_vs_jax_nested": z_jax,
+        "k1_launches": launches,
+        "by_key": summary,
+    }
+    print(f"# gibbs_rats_nested {chains} chains x {sweeps} sweeps: {json.dumps(res)}",
+          flush=True)
+    if rhat > RHAT_GATE:
+        raise RuntimeError(f"nested rats rank-R-hat {rhat} > {RHAT_GATE}")
+    if not NESTED_ACCEPT_RANGE[0] <= accept <= NESTED_ACCEPT_RANGE[1]:
+        raise RuntimeError(f"nested alpha acceptance {accept} outside {NESTED_ACCEPT_RANGE}")
+    if max(z_conj["alpha_c"], z_conj["beta_c"]) > MEAN_Z_GATE:
+        raise RuntimeError(f"nested and conjugate rats means differ: {z_conj} se")
+    if max(z_jax.values()) > MEAN_Z_GATE:
+        raise RuntimeError(f"nested rats means differ from the JAX package's: {z_jax} se")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -598,16 +836,24 @@ def main():
     chees, chees_summary = run_main_path()
     nuts, wjob, state, chol, gen, data = run_nuts_precond(chees_summary)
     check_no_host_read(wjob, state, gen)
-    if "--profile-nuts" in sys.argv[1:]:
-        profile_nuts(wjob, state, gen, sys.argv[sys.argv.index("--profile-nuts") + 1])
+    profile_dir = sys.argv[sys.argv.index("--profile") + 1] if "--profile" in sys.argv else None
+    if profile_dir:
+        profile_nuts(wjob, state, gen, profile_dir)
     looped = run_nuts_looped(wjob, state, chol, gen, nuts["mean_na"], data)
     raw = run_nuts_raw()
+    gibbs, gjob, gchains, gv0, ggen = run_gibbs_rats()
+    check_gibbs_no_host_read(gjob, gchains, gv0, ggen)
+    if profile_dir:
+        profile_gibbs(gjob, gchains, gv0, ggen, profile_dir)
+    nested = run_gibbs_nested(gibbs["by_key"])
 
     by_path = {"chees_precond": chees["k1_launches"], "nuts_precond": nuts["k1_launches"],
                "nuts_looped": looped["k1_launches"], "nuts": raw["k1_launches"]}
     for path, n in by_path.items():
         if n <= 0:
             raise RuntimeError(f"the {path} path launched no K1 kernel")
+    # the Gibbs sweep runs no kernel of the port, as the JAX sweep runs no Pallas kernel
+    by_path.update(gibbs_rats=gibbs["k1_launches"], gibbs_rats_nested=nested["k1_launches"])
     err_by_path = {"chees_precond": chees["k1_max_abs_err_on_path"],
                    "nuts_precond": nuts["k1_max_abs_err_on_path"],
                    "nuts_looped": looped["k1_max_abs_err_on_path"],

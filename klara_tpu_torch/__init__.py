@@ -9,11 +9,22 @@ CUDA kernel with a plain PyTorch version for CPU tensors.  The JAX package
 
 from klara_tpu_torch.core.target import Target, bounded_target, whiten_target
 from klara_tpu_torch.jobs.chain import Chain
+from klara_tpu_torch.jobs.gibbs import GibbsChains, GibbsJob, Nested
 from klara_tpu_torch.jobs.job import MCJob, run
 from klara_tpu_torch.jobs.range import MCRange
-from klara_tpu_torch.samplers import HMC, NUTS, NUTSState
-from klara_tpu_torch.tuners import DualAveragingTuner, VanillaTuner
-from klara_tpu_torch import stats
+from klara_tpu_torch.models import (
+    Constant,
+    Data,
+    GenericModel,
+    GibbsParameter,
+    Hyperparameter,
+    Parameter,
+    Transformation,
+    likelihood_model,
+)
+from klara_tpu_torch.samplers import HMC, MH, NUTS, NUTSState
+from klara_tpu_torch.tuners import AcceptanceRateTuner, DualAveragingTuner, VanillaTuner
+from klara_tpu_torch import distributions, stats
 
 __version__ = "0.1.0"
 
@@ -25,10 +36,24 @@ __all__ = [
     "MCJob",
     "MCRange",
     "run",
+    "GibbsJob",
+    "GibbsChains",
+    "Nested",
+    "GenericModel",
+    "GibbsParameter",
+    "Parameter",
+    "Constant",
+    "Hyperparameter",
+    "Data",
+    "Transformation",
+    "likelihood_model",
+    "MH",
     "HMC",
     "NUTS",
     "NUTSState",
     "VanillaTuner",
+    "AcceptanceRateTuner",
     "DualAveragingTuner",
+    "distributions",
     "stats",
 ]

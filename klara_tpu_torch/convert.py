@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from klara_tpu_torch.jobs.chain import Chain
+from klara_tpu_torch.jobs.gibbs import GibbsChains
 from klara_tpu_torch.models.examples import logistic_regression_target
 from klara_tpu_torch.samplers.hmc import HMCState
 from klara_tpu_torch.samplers.nuts import NUTSState
@@ -19,7 +20,10 @@ from klara_tpu_torch.tuners.tuners import DualAveragingExtra, TuneState
 
 
 def _t(a, device=None):
-    return torch.tensor(np.asarray(a), device=device)  # a copy: JAX's arrays are read-only
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # numpy's bf16 (ml_dtypes) has no torch twin
+        return torch.tensor(a.astype(np.float32), device=device).to(torch.bfloat16)
+    return torch.tensor(a, device=device)  # a copy: JAX's arrays are read-only
 
 
 def target_arrays(X, y, prior_var: float = 100.0, device=None):
@@ -76,4 +80,19 @@ def chain_from_numpy(samples, diagnostics=None, device=None) -> Chain:
     return Chain(
         samples={k: _t(v, device) for k, v in samples.items()},
         diagnostics={k: _t(v, device) for k, v in (diagnostics or {}).items()},
+    )
+
+
+def gibbs_values_from_numpy(values, device=None):
+    """A Gibbs values dict as numpy (a JAX ``v0``, or a ``GibbsChains``'
+    ``final_values`` with leading chains axes) -> the port's tensors."""
+    return {k: _t(v, device) for k, v in values.items()}
+
+
+def gibbs_chains_from_numpy(chains, device=None) -> GibbsChains:
+    """A JAX ``GibbsChains`` with numpy leaves -> the port's."""
+    return GibbsChains(
+        samples=gibbs_values_from_numpy(chains.samples, device),
+        final_values=gibbs_values_from_numpy(chains.final_values, device),
+        diagnostics=gibbs_values_from_numpy(chains.diagnostics, device),
     )

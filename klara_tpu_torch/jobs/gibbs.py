@@ -1,0 +1,385 @@
+"""GibbsJob: block-sweep simulation over a model graph, batch-first
+(counterpart of klara_tpu/jobs/gibbs.py).
+
+A sweep visits each dependent variable in vertex order and
+
+  (a) runs a nested sampler on the parameter's conditional
+      (MCMC-within-Gibbs, a ``Nested`` entry of ``sweep``),
+  (b) draws from its full conditional ``setpdf`` given the current values,
+  (c) or applies a Transformation,
+
+after the update hooks of Data vertices have fired.  The JAX package writes
+every block per chain and vmaps the sweep; here each block updates all
+chains at once.  Values the sweep carries (dependents and Data vertices
+with an update hook) have a leading chains axis: a per-chain scalar is
+(C,), a K-vector (C, K).  Every other value (data, hyperparameters) stays
+as given.  User functions are written for that layout: a per-chain scalar
+meets a vector through ``[:, None]`` (at C == K plain broadcasting would
+silently pair chains with coordinates), and ``logtarget`` maps (C, ...) to
+(C,).
+
+A conditional draw is one independent draw per chain at the carried
+value's shape, even from a distribution whose parameters are all
+constants; within a chain it keeps the JAX package's shape rule (a Gamma
+with a scalar shape parameter and a vector rate shares one gamma draw
+across the vector).  The draw is cast to the carried value's dtype.
+
+Sweeps run in a Python loop.  The conjugate sweep reads nothing back from
+the device; a nested HMC/NUTS block with dynamic leap counts reads its batch
+maximum once per nested step.  Nested blocks re-initialise their sampler
+every sweep, from the current value or a fresh prior draw
+(``reset_from_prior``), and tune per chain during their ``burnin``; HMC/NUTS
+blocks under dual averaging take their initial ε from one step-size search
+per run, against the initial conditionals.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from klara_tpu_torch.core.target import Target
+from klara_tpu_torch.distributions.core import draw_per_chain
+from klara_tpu_torch.jobs.range import MCRange
+from klara_tpu_torch.models.graph import Data, GenericModel, GibbsParameter, Transformation
+from klara_tpu_torch.samplers.base import Sampler
+from klara_tpu_torch.samplers.hamiltonian import find_reasonable_step_size
+from klara_tpu_torch.samplers.hmc import HMC
+from klara_tpu_torch.samplers.nuts import NUTS
+from klara_tpu_torch.tuners.tuners import DualAveragingTuner, Tuner
+
+
+@dataclasses.dataclass(frozen=True)
+class Nested:
+    """MCMC-within-Gibbs block: ``n_steps`` sampler steps on the block's
+    conditional each sweep, the tuner (if any) adapting during the first
+    ``burnin`` of them.  With ``reset_from_prior`` the nested start is drawn
+    from the parameter's ``setprior`` each sweep instead of continuing from
+    the current value."""
+
+    sampler: Sampler
+    n_steps: int = 1
+    step_size: Optional[float] = None
+    burnin: int = 0
+    tuner: Optional[Tuner] = None
+    reset_from_prior: bool = False
+
+
+@dataclasses.dataclass
+class GibbsChains:
+    """Per-variable draws: ``samples[key]`` is (n_post, n_chains, ...).
+    ``diagnostics['<key>.accept']`` (n_post, n_chains) is the mean
+    acceptance of nested block <key> in each saved sweep."""
+
+    samples: Dict[str, torch.Tensor]
+    final_values: Dict[str, torch.Tensor]
+    diagnostics: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+
+    def __getitem__(self, key):
+        if key in self.samples:
+            return self.samples[key]
+        return self.diagnostics[key]
+
+    def flat(self, key):
+        arr = self[key]
+        return arr.reshape((-1,) + tuple(arr.shape[2:]))
+
+
+def _default_outopts():
+    return {"destination": "nstate", "filepath": None, "flush": False}
+
+
+def _as_tensor(v, device):
+    """A value as a tensor on ``device``.  Numbers and arrays get the JAX
+    package's 32-bit defaults (a Python float becomes f32, an int int32);
+    a tensor (already on ``device``) is kept as it is."""
+    if torch.is_tensor(v):
+        return v
+    a = np.asarray(v)
+    if a.dtype == np.float64:
+        a = a.astype(np.float32)
+    elif a.dtype == np.int64:
+        a = a.astype(np.int32)
+    return torch.tensor(a, device=device)
+
+
+@dataclasses.dataclass
+class GibbsJob:
+    """Gibbs sweep runner over a GenericModel.
+
+    Parameters
+    ----------
+    model : GenericModel
+    sweep : {param_key: Nested(...)} for MCMC-within-Gibbs blocks; params
+        absent from the dict take their full-conditional ``setpdf`` draw.
+    mcrange : MCRange
+    n_chains : chains axis
+    monitor : dependent variables to record (default: all)
+    outopts : per-variable output options
+        {key: {'destination': 'nstate'|'none', ...}}; 'none' keeps no trace
+        (the final value is still returned).  'csv' is not ported yet.
+    record_diagnostics : record '<key>.accept' for nested blocks
+    hoist_step_search : one step-size search per run for HMC/NUTS nested
+        blocks under dual averaging with no ``step_size`` (else one per
+        sweep, inside the sampler's ``init``)
+    trace_dtype : storage dtype of floating-point traces, e.g. 'bfloat16'
+        (only the saved copy rounds; the sweep and final values keep theirs)
+    device : where the carried values, the statics and the traces live
+        (None: the device of v0's tensors, the CPU when v0 holds none; a
+        tensor of v0 on another device than a given one raises)
+    """
+
+    model: GenericModel
+    sweep: Dict[str, Nested] = dataclasses.field(default_factory=dict)
+    mcrange: MCRange = dataclasses.field(default_factory=MCRange)
+    n_chains: int = 1
+    monitor: Optional[Sequence[str]] = None
+    outopts: Dict[str, Dict[str, Any]] = dataclasses.field(default_factory=dict)
+    record_diagnostics: bool = True
+    hoist_step_search: bool = True
+    trace_dtype: Optional[str] = None
+    device: Any = None
+
+    def __post_init__(self):
+        self._dependents = self.model.dependents
+        self._updatable = [
+            v for v in self.model.vertices if isinstance(v, Data) and v.update is not None
+        ]
+        if self.monitor is None:
+            self.monitor = [v.key for v in self._dependents]
+        # specialise nested samplers to their tuners (HMC: fixed trajectory
+        # length under dual averaging), as MCJob does
+        self.sweep = {
+            k: (
+                dataclasses.replace(spec, sampler=spec.sampler.bind_tuner(spec.tuner))
+                if spec.tuner is not None
+                else spec
+            )
+            for k, spec in self.sweep.items()
+        }
+        for key in self.sweep:
+            if key not in self.model:
+                raise ValueError(f"sweep references unknown variable {key!r}")
+        for key, spec in self.sweep.items():
+            if spec.reset_from_prior and self.model[key].setprior is None:
+                raise ValueError(
+                    f"Nested(reset_from_prior=True) on {key!r} requires the "
+                    "parameter to define setprior"
+                )
+        self._opts = {}
+        for key in self.monitor:
+            opts = dict(_default_outopts())
+            opts.update(self.outopts.get(key, {}))
+            if opts["destination"] not in ("nstate", "csv", "none"):
+                raise ValueError(f"unknown destination {opts['destination']!r} for {key!r}")
+            if opts["destination"] == "csv":
+                if not opts.get("filepath"):
+                    raise ValueError(f"destination='csv' for {key!r} requires filepath")
+                raise NotImplementedError(
+                    f"destination='csv' for {key!r}: streaming a Gibbs trace to CSV "
+                    "is not ported yet (ROADMAP slice 5, output)"
+                )
+            self._opts[key] = opts
+        unknown = set(self.outopts) - set(self.monitor)
+        if unknown:
+            raise ValueError(f"outopts for unmonitored variables: {sorted(unknown)}")
+        self._trace_dtype = None
+        if self.trace_dtype is not None:
+            self._trace_dtype = getattr(torch, str(self.trace_dtype), None)
+            if not isinstance(self._trace_dtype, torch.dtype):
+                raise ValueError(f"unknown trace_dtype {self.trace_dtype!r}")
+
+    # ---------------------------------------------------------------- sweep
+    def _needs_step_hoist(self, spec: Nested) -> bool:
+        """True when the block's ``init`` would run the step-size search:
+        HMC/NUTS under dual averaging with no explicit step size."""
+        return (
+            self.hoist_step_search
+            and spec.step_size is None
+            and isinstance(spec.sampler, (HMC, NUTS))
+            and isinstance(spec.tuner, DualAveragingTuner)
+        )
+
+    def _hoist_step_sizes(self, values: Dict[str, Any], generator):
+        """Per-chain (C,) step sizes for nested blocks, searched once per
+        run against the initial conditionals and reused by every sweep."""
+        out = {}
+        for hk, spec in sorted(self.sweep.items()):
+            if not self._needs_step_hoist(spec):
+                continue
+            var, frozen = self.model[hk], dict(values)
+            target = Target(
+                logdensity_fn=lambda x, _v=var, _f=frozen: _v.conditional_logdensity(x, _f)
+            )
+            out[hk] = find_reasonable_step_size(target, values[hk], generator)
+        return out
+
+    def _nested_update(self, var, spec: Nested, values, generator, step_size):
+        """``n_steps`` sampler steps on the conditional of ``var`` from ε =
+        ``step_size`` (None: the sampler's own start)."""
+        x0 = values[var.key]
+        if spec.reset_from_prior:
+            x0 = draw_per_chain(var.setprior(values), x0, generator)
+        # conditional target given the CURRENT values of all others
+        frozen = dict(values)
+        target = Target(logdensity_fn=lambda x: var.conditional_logdensity(x, frozen))
+        state = spec.sampler.init(target, x0, generator, step_size=step_size, tuner=spec.tuner)
+        acc = torch.zeros(x0.shape[0], dtype=torch.float32, device=x0.device)
+        for _ in range(spec.n_steps):
+            state, info = spec.sampler.step(state, target, generator)
+            accept = info.accept.to(torch.float32)
+            if spec.tuner is not None and not spec.sampler.self_tuning:
+                stat = info.accept_stat if spec.sampler.tuner_statistic == "accept_stat" else accept
+                state = state._replace(
+                    tune=spec.tuner.update(state.tune, accept, stat, spec.burnin)
+                )
+            acc = acc + accept
+        return state.position, {f"{var.key}.accept": acc / spec.n_steps}
+
+    def _block_update(self, var, values, generator, hoisted, noise=None):
+        """One block of the sweep: (new value, diagnostics dict)."""
+        if isinstance(var, Transformation):
+            return var.transform(values), {}
+        if var.key in self.sweep:
+            spec = self.sweep[var.key]
+            step_size = spec.step_size if spec.step_size is not None else hoisted.get(var.key)
+            return self._nested_update(var, spec, values, generator, step_size)
+        if var.setpdf is None:
+            raise ValueError(
+                f"parameter {var.key!r} needs either a setpdf full conditional "
+                "or a Nested sweep entry"
+            )
+        return draw_per_chain(var.setpdf(values), values[var.key], generator, noise), {}
+
+    def _sweep(self, values, generator, hoisted, noise=None):
+        """One full sweep over all chains: (updated values, diagnostics).
+        ``noise`` ({key: standard draw}) replays conditional draws."""
+        values, diags = dict(values), {}
+        for u in self._updatable:  # Data.update hooks fire before any block
+            values[u.key] = u.update(values)
+        for var in self._dependents:
+            values[var.key], d = self._block_update(
+                var, values, generator, hoisted, None if noise is None else noise.get(var.key)
+            )
+            diags.update(d)
+        return values, diags
+
+    def _carry_keys(self):
+        return [u.key for u in self._updatable] + [v.key for v in self._dependents]
+
+    def _device_of(self, v0: Dict[str, Any]) -> torch.device:
+        """The run's device: ``device`` if given, else the one device of
+        v0's tensors (the CPU when v0 holds none).  Values never move
+        between devices: a tensor elsewhere raises."""
+        held = {t.device for t in v0.values() if torch.is_tensor(t)}
+        if self.device is None:
+            if len(held) > 1:
+                raise ValueError(
+                    f"v0 holds tensors on several devices {sorted(map(str, held))}; "
+                    "pass device="
+                )
+            return held.pop() if held else torch.device("cpu")
+        want = torch.device(self.device)
+        for d in held:
+            if d.type != want.type or want.index not in (None, d.index):
+                raise ValueError(f"v0 holds tensors on {d}, but the job's device is {want}")
+        return want
+
+    def _initial_values(self, v0: Dict[str, Any], prebatched: bool):
+        """Every value on the run's device, the carried ones with a leading
+        chains axis (already there when ``prebatched``)."""
+        device = self._device_of(v0)
+        carry = set(self._carry_keys())
+        values = {}
+        for k, v in v0.items():
+            t = _as_tensor(v, device)
+            if k in carry and not prebatched:
+                t = t.expand((self.n_chains,) + tuple(t.shape)).clone()
+            values[k] = t
+        return values
+
+    # ------------------------------------------------------------------ run
+    def _run(self, generator, v0: Dict[str, Any], prebatched: bool):
+        burnin, thinning = self.mcrange.burnin, self.mcrange.thinning
+        n_post = self.mcrange.n_post
+        values = self._initial_values(v0, prebatched)
+        device = self._device_of(values)
+        dep_keys = [v.key for v in self._dependents]
+        diag_keys = (
+            [f"{k}.accept" for k in self.sweep if k in dep_keys]
+            if self.record_diagnostics
+            else []
+        )
+
+        def buf_dtype(v):
+            if self._trace_dtype is not None and v.is_floating_point():
+                return self._trace_dtype
+            return v.dtype
+
+        buffers = {
+            k: torch.empty((n_post,) + tuple(values[k].shape), dtype=buf_dtype(values[k]),
+                           device=values[k].device)
+            for k in self.monitor
+            if self._opts[k]["destination"] == "nstate"
+        }
+        diag_buffers = {
+            k: torch.empty((n_post, self.n_chains), dtype=torch.float32, device=device)
+            for k in diag_keys
+        }
+        hoisted = self._hoist_step_sizes(values, generator)
+        for i in range(self.mcrange.n_steps):
+            values, diags = self._sweep(values, generator, hoisted)
+            if i >= burnin and (i - burnin) % thinning == 0:
+                j = (i - burnin) // thinning
+                for k, buf in buffers.items():
+                    buf[j].copy_(values[k])
+                for k, buf in diag_buffers.items():
+                    buf[j].copy_(diags[k])
+        return GibbsChains(
+            samples=buffers,
+            final_values={k: values[k] for k in self._carry_keys()},
+            diagnostics=diag_buffers,
+        )
+
+    def run(self, generator, v0: Dict[str, Any]) -> GibbsChains:
+        """Sweep ``mcrange.n_steps`` times from ``v0``, which holds a value
+        for every vertex (carried values without the chains axis)."""
+        missing = [v.key for v in self.model.vertices if v.key not in v0]
+        if missing:
+            raise ValueError(f"v0 missing values for {missing}")
+        return self._run(generator, v0, prebatched=False)
+
+    def resume(self, generator, chains: GibbsChains, v0: Dict[str, Any]) -> GibbsChains:
+        """Continue for another ``mcrange.n_steps`` sweeps from
+        ``chains.final_values``; ``v0`` supplies the values that are not
+        carried (data, hyperparameters), as in ``run``."""
+        carry = self._carry_keys()
+        merged = {k: v for k, v in v0.items() if k not in carry}
+        merged.update({k: chains.final_values[k] for k in carry})
+        missing = [v.key for v in self.model.vertices if v.key not in merged]
+        if missing:
+            raise ValueError(f"resume missing values for {missing}")
+        return self._run(generator, merged, prebatched=True)
+
+    def to_dot(self) -> str:
+        """Graphviz export with update annotations: dependents get
+        ``peripheries=2``, monitored dependents (destination != 'none') an
+        underlined label, MCMC-within-Gibbs blocks ``style=diagonals``."""
+        lines = ["digraph GibbsJob {"]
+        for v in self.model.vertices:
+            attrs = [f"shape={v.dotshape}"]
+            if v.is_dependent:
+                attrs.append("peripheries=2")
+                opts = self._opts.get(v.key)
+                if opts is not None and opts["destination"] != "none":
+                    attrs.append(f"label=<<u>{v.key}</u>>")
+                if isinstance(v, GibbsParameter) and v.key in self.sweep:
+                    attrs.append("style=diagonals")
+            lines.append(f'  "{v.key}" [{", ".join(attrs)}];')
+        for s, t in self.model.edges:
+            lines.append(f'  "{s}" -> "{t}";')
+        lines.append("}")
+        return "\n".join(lines)

@@ -41,6 +41,14 @@ def metropolis_accept(log_ratio, generator=None, u=None):
     return log_ratio > torch.log(u)
 
 
+def per_chain_step(step, C, dtype, device):
+    """A step size as a (C,) tensor: a tensor (per chain, or one that
+    broadcasts to (C,)) is taken as is, a number is filled."""
+    if torch.is_tensor(step):
+        return step.to(dtype=dtype, device=device).expand(C)
+    return torch.full((C,), float(step), dtype=dtype, device=device)
+
+
 @dataclasses.dataclass(frozen=True)
 class Sampler:
     """Base class. Subclasses define ``init`` and ``step``."""

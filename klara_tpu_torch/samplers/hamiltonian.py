@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from klara_tpu_torch.samplers.base import per_chain_step
 from klara_tpu_torch.tuners.tuners import DualAveragingTuner
 
 
@@ -114,17 +115,15 @@ def find_reasonable_step_size(target, position, generator=None, max_iter=100,
 def init_tune(tuner, target, position, leapstep, generator=None, step_size=None,
               momentum=None):
     """The tuner state a gradient sampler starts from: ε = ``step_size``
-    if given, else the step-size search under dual averaging (``momentum``
-    feeds it; tests replay draws), else ``leapstep``.  Dual averaging then
-    sets its μ from ε."""
-    C = position.shape[0]
-    kw = dict(dtype=position.dtype, device=position.device)
-    if step_size is not None:
-        step0 = torch.full((C,), float(step_size), **kw)
-    elif isinstance(tuner, DualAveragingTuner):
+    if given (a number, or a per-chain (C,) tensor taken as is), else the
+    step-size search under dual averaging (``momentum`` feeds it; tests
+    replay draws), else ``leapstep``.  Dual averaging then sets its μ from
+    ε."""
+    if step_size is None and isinstance(tuner, DualAveragingTuner):
         step0 = find_reasonable_step_size(target, position, generator, momentum=momentum)
     else:
-        step0 = torch.full((C,), float(leapstep), **kw)
+        step0 = per_chain_step(leapstep if step_size is None else step_size,
+                               position.shape[0], position.dtype, position.device)
     tune = tuner.init(step0)
     if isinstance(tuner, DualAveragingTuner):
         tune = tuner.set_mu_from_step(tune)

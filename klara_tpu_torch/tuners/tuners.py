@@ -3,16 +3,26 @@
 Counterpart of klara_tpu/tuners/tuners.py.  Every field of ``TuneState``
 carries a leading chains axis (C,), as the JAX state does under the job's
 vmap; the updates are elementwise, so one call updates every chain.
-``AcceptanceRateTuner`` and ``RobertsRosenthalTuner`` are not ported yet.
+``RobertsRosenthalTuner`` is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, NamedTuple
+from typing import Any, NamedTuple, Optional
 
 import torch
+
+
+def logistic_rate_score(x, k=7.0):
+    """Stretched logistic score in (0, 2): 2 / (1 + e^(−k·x))."""
+    return 2.0 / (1.0 + torch.exp(-k * x))
+
+
+def erf_rate_score(x, k=3.0):
+    """erf-based score in (0, 2)."""
+    return torch.erf(k * x) + 1.0
 
 
 class TuneState(NamedTuple):
@@ -78,6 +88,27 @@ class Tuner:
 @dataclasses.dataclass(frozen=True)
 class VanillaTuner(Tuner):
     """No-op tuner."""
+
+
+@dataclasses.dataclass(frozen=True)
+class AcceptanceRateTuner(Tuner):
+    """Scale the step by score(observed rate − target rate) at every
+    period boundary during burnin."""
+
+    targetrate: float = 0.234
+    score: str = "logistic"  # 'logistic' | 'erf'
+    k: Optional[float] = None
+
+    def _score(self, x):
+        if self.score == "logistic":
+            return logistic_rate_score(x, 7.0 if self.k is None else self.k)
+        if self.score == "erf":
+            return erf_rate_score(x, 3.0 if self.k is None else self.k)
+        raise ValueError(f"unknown score {self.score!r}")
+
+    def _tune(self, tune, accept_stat, at_boundary, burnin):
+        scaled = tune.step * self._score(tune.rate - self.targetrate)
+        return torch.where(at_boundary, scaled, tune.step), tune.extra
 
 
 class DualAveragingExtra(NamedTuple):
