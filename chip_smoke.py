@@ -1,22 +1,30 @@
 """Smoke run of the PyTorch port (klara_tpu_torch) on one NVIDIA GPU.
 
     python3 chip_smoke.py                # phases 1-11
-    python3 chip_smoke.py --profile DIR  # also profile nuts_precond stage 2 and the Gibbs sweep
+    python3 chip_smoke.py --profile DIR  # also profile stage 2 of both logreg rows and the Gibbs sweep
+    python3 chip_smoke.py --stage1-sensitivity  # only: stage 1 with K1 and with the plain version, three seeds
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the hand-written CUDA kernels from ``klara_tpu_torch/ops/csrc``;
-3. compare kernel K1 (batched logreg value+grad) with its plain PyTorch
-   version on the card, TF32 off, at C=5/D=7/N=300 and at the main path's
-   C=16384/D=100/N=1024, and time both (CUDA events, 50 calls after warm-up);
+3. compare kernel K1 (batched logreg value+grad, three TF32 passes) with its
+   plain PyTorch version on the card, TF32 off, at C=5/D=7/N=300, at the
+   ragged C=200/D=100/N=1000 (every tile edge of the kernel), at C=4096 and
+   at the main path's C=16384/D=100/N=1024, and time it at the last two
+   (CUDA events, 50 calls after warm-up) beside the plain version; time the
+   single-pass form (``passes=1``, used by no path) at the main shape and
+   hold it to a TF32 tolerance; hold K1 to the absolute tolerances against
+   the plain version in float64 at 16384 positions around the posterior mode;
 4. run the main path, ``MCJob.run_preconditioned`` with the chees_precond
    settings of bench.py, at 16384 chains on the 100-dim synthetic logistic
    regression (1024 rows), 300 burnin and 2000 post draws, bf16 trace;
    check that K1 was launched, every draw is finite, the chunked rank-R̂
    max is at most 1.02, pooled acceptance lies in [0.6, 0.95] and K1
    agrees with its plain version on the final positions; print
-   the phase times, min ESS, ESS/s and leaps per draw;
+   the phase times, min ESS, ESS/s, leaps per draw, stage 1's adapted step
+   and trajectory length and the K1 launches of each stage, and hold the
+   launch counts to those of the kernel's earlier design (``K1_LAUNCHES_BEFORE``);
 5. run nuts_precond at the same size: the same stage 1, stage 2 whitened
    NUTS(max_doublings=3) (bench.py's settings); check finiteness, R̂,
    that stage 2 launched K1 exactly 7 times per step plus once at init,
@@ -57,14 +65,23 @@ Phases, each of which raises on failure (the script then exits non-zero):
 The Gibbs paths launch no K1 (their sweep is plain torch ops in both
 packages); the kernels line records their K1 count, 0.
 
-With ``--profile DIR``, 200 stage-2 steps of phase 5's sampler are
-profiled after phase 6 (``profile_nuts``; DIR/profile_nuts.json) and 200
+With ``--profile DIR``, 200 stage-2 steps of phase 4's sampler are
+profiled after phase 4 (``profile_chees``; DIR/profile_chees.json), 200
+stage-2 steps of phase 5's sampler after phase 6 (``profile_nuts``; DIR/profile_nuts.json) and 200
 conjugate rats sweeps after phase 10 (``profile_gibbs``;
 DIR/profile_gibbs.json).
 
+With ``--stage1-sensitivity`` phases 1-3 run and then stage 1 alone (ChEES
+HMC, 300 adapting steps at 16384 chains) five times: with K1 and with the
+plain version as the target's value+grad, at generator seeds 42 and 43, and
+with K1 at seed 44.  Each run prints its value+grad evaluations, adapted
+step and trajectory length: how far the evaluation count moves with the
+rounding of the value+grad alone and with the draws (``STAGE1_ALLOWANCE``).
+
 The last three lines of stdout are the kernels' JSON summary, the card
-line and the device JSON line.  Matmuls run in full f32 (TF32 off), the precision the JAX
-bench's 'high' setting approximates; the tolerances below assume it.
+line and the device JSON line.  The plain versions' matmuls run in full f32
+(TF32 off); K1's three TF32 passes are f32-grade and meet the same
+tolerances.
 """
 
 from __future__ import annotations
@@ -83,7 +100,27 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # phase-3 tolerances: the kernel and cuBLAS sum in different orders
 VALUE_RTOL, VALUE_ATOL = 1e-5, 1e-3
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-3
+# one TF32 pass keeps 11 bits of each operand: about three decimal digits of
+# a sum whose terms do not cancel, more where they do
+TF32_VALUE_RTOL, TF32_GRAD_RTOL, TF32_GRAD_ATOL = 1e-3, 1e-2, 0.5
+TF32_PEAK_FLOPS, HBM_BYTES_PER_S = 495e12, 3.35e12  # H100 SXM, dense TF32; HBM3
 RHAT_GATE = 1.02  # bench.py's mixing gate
+# K1 launches of the same paths with the kernel's earlier design (both
+# products on the FP32 cores; same seeds, sizes and settings).  Stage 1 is the
+# ChEES warmup that chees_precond and nuts_precond share.  Stage 2 of
+# nuts_precond is held exactly (7 leaves a step); the other counts follow an
+# adapted step size or trajectory length, which a change of the kernel's
+# rounding may move.
+K1_LAUNCHES_BEFORE = {"stage1": 30926, "chees_stage2": 11816, "nuts_looped": 9095, "nuts": 83707}
+LAUNCH_ALLOWANCE = 0.03
+# Stage 1 adapts the trajectory length by Adam steps on a noisy ensemble
+# estimate, so its count follows the value+grad's last bits and, far more,
+# the seed.  ``--stage1-sensitivity`` on an NVIDIA H100 80GB HBM3 at 700 W:
+# 29,441 evaluations with K1 and 29,406 with the plain version at seed 42
+# (30,926 with the earlier design: three roundings, 5% apart, adapted
+# trajectory lengths 16.3 and 16.9), 19,532 and 19,357 at seed 43 (trajectory
+# lengths 9.5 and 12.4), 24,346 with K1 at seed 44.
+STAGE1_ALLOWANCE = 0.08
 ACCEPT_RANGE = (0.6, 0.95)
 
 DIM, N_DATA, CHAINS, BURNIN, POST = 100, 1024, 16384, 300, 2000
@@ -131,12 +168,14 @@ def _time_ms(fn, iters=50, warmup=5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _k1_error(P, X, v, prior_var=100.0):
+def _k1_error(P, X, y, prior_var=100.0):
     """K1 against its plain version on the same card inputs (phase-3
     tolerances); returns the max abs error."""
     from klara_tpu_torch.ops import logreg
 
-    val, grad = logreg.logreg_value_grad(P, X, v, prior_var)
+    v = (X.T @ y).contiguous()
+    prep = logreg.prepare_x(X, y)
+    val, grad = logreg.logreg_value_grad(P, X, v, prior_var, prepared=prep)
     rval, rgrad = logreg.logreg_value_grad_reference(P, X, v, prior_var)
     torch.cuda.synchronize()
     torch.testing.assert_close(val, rval, rtol=VALUE_RTOL, atol=VALUE_ATOL)
@@ -144,9 +183,22 @@ def _k1_error(P, X, v, prior_var=100.0):
     return max(float((val - rval).abs().max()), float((grad - rgrad).abs().max()))
 
 
-def check_k1(C, D, N, seed=0, timed=False):
+def k1_bound_ms(C, D, N, passes=3):
+    """The least time the card could take for one K1 evaluation, and which
+    of the two limits sets it: ``passes`` TF32 passes over the two products
+    of 2·C·N·D operations each at the dense TF32 peak, or the compulsory
+    traffic (P in, gradient and value out, X and v in, 4 bytes each) at the
+    memory rate."""
+    ops_ms = 1e3 * passes * 2 * (2 * C * N * D) / TF32_PEAK_FLOPS
+    bytes_ms = 1e3 * 4 * (2 * C * D + C + N * D + D) / HBM_BYTES_PER_S
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def check_k1(C, D, N, seed=0, timed=False, single_pass=False):
     """K1 against its plain version on random card inputs; returns the max
-    abs error and, if ``timed``, both times in ms."""
+    abs error and, if ``timed``, both times in ms (K1 with X prepared once,
+    as the target calls it).  ``single_pass`` also times ``passes=1`` and
+    holds it to the TF32 tolerances."""
     from klara_tpu_torch.ops import logreg
 
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -154,11 +206,65 @@ def check_k1(C, D, N, seed=0, timed=False):
     y = (torch.rand(N, generator=g, device="cuda") < 0.5).float()
     P = 0.3 * torch.randn(C, D, generator=g, device="cuda")
     v = (X.T @ y).contiguous()
-    out = {"shape": [C, D, N], "max_abs_err": _k1_error(P, X, v)}
+    out = {"shape": [C, D, N], "max_abs_err": _k1_error(P, X, y)}
     if timed:
-        out["ms"] = _time_ms(lambda: logreg.logreg_value_grad(P, X, v, 100.0))
+        prep = logreg.prepare_x(X, y)
+        out["ms"] = _time_ms(lambda: logreg.logreg_value_grad(P, X, v, 100.0, prepared=prep))
         out["plain_ms"] = _time_ms(lambda: logreg.logreg_value_grad_reference(P, X, v, 100.0))
+        out["prepare_x_ms"] = _time_ms(lambda: logreg.prepare_x(X, y))
+    if single_pass:
+        prep = logreg.prepare_x(X, y)
+        val, grad = logreg.logreg_value_grad(P, X, v, 100.0, passes=1, prepared=prep)
+        rval, rgrad = logreg.logreg_value_grad_reference(P, X, v, 100.0)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(val, rval, rtol=TF32_VALUE_RTOL, atol=0)
+        torch.testing.assert_close(grad, rgrad, rtol=TF32_GRAD_RTOL, atol=TF32_GRAD_ATOL)
+        out["single_pass"] = {
+            "ms": _time_ms(lambda: logreg.logreg_value_grad(P, X, v, 100.0, passes=1,
+                                                            prepared=prep)),
+            "value_max_rel_err": float(((val - rval) / rval).abs().max()),
+            "grad_max_abs_err": float((grad - rgrad).abs().max()),
+        }
     print(f"# K1 vs plain at C={C} D={D} N={N}: {out}", flush=True)
+    return out
+
+
+def check_k1_against_float64(chains=CHAINS, dim=DIM, n_data=N_DATA, seed=3):
+    """K1 and the plain f32 version against the plain version in float64 at
+    ``chains`` positions drawn from the Laplace approximation of the main
+    path's posterior (Newton steps to the mode in float64), where the logits
+    are large and p·v and Σ softplus nearly cancel.  K1 must meet the phase-3
+    absolute tolerances against float64 itself; returns both versions' errors."""
+    from klara_tpu_torch.models.examples import synthetic_logistic_regression
+    from klara_tpu_torch.ops import logreg
+
+    _, X, y = synthetic_logistic_regression(dim=dim, n_data=n_data, device="cuda")
+    Xd, yd = X.double(), y.double()
+    eye = torch.eye(dim, dtype=torch.float64, device="cuda")
+    w = torch.zeros(dim, dtype=torch.float64, device="cuda")
+    for _ in range(30):
+        p = torch.sigmoid(Xd @ w)
+        hess = (Xd.T * (p * (1 - p))) @ Xd + eye / 100.0
+        w = w + torch.linalg.solve(hess, Xd.T @ (yd - p) - w / 100.0)
+    chol = torch.linalg.cholesky(torch.linalg.inv(hess))
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    noise = torch.randn(chains, dim, generator=gen, device="cuda", dtype=torch.float64)
+    P = (w + noise @ chol.T).float().contiguous()
+    v = (X.T @ y).contiguous()
+    rv, rg = logreg.logreg_value_grad_reference(P.double(), Xd, Xd.T @ yd, 100.0)
+    pv, pg = logreg.logreg_value_grad_reference(P, X, v, 100.0)
+    kv, kg = logreg.logreg_value_grad(P, X, v, 100.0, prepared=logreg.prepare_x(X, y))
+    torch.cuda.synchronize()
+    out = {"mean_abs_logit": float((P @ X.T).abs().mean()), "mean_value": float(rv.mean())}
+    for name, val, grad in (("plain_f32", pv, pg), ("k1", kv, kg)):
+        dv, dg = val - rv, grad - rg
+        out[name] = {"value_max_abs_err": float(dv.abs().max()),
+                     "value_rms_err": float(dv.pow(2).mean().sqrt()),
+                     "grad_max_abs_err": float(dg.abs().max())}
+    print(f"# K1 and plain f32 vs float64 at {chains} posterior positions: {json.dumps(out)}",
+          flush=True)
+    if out["k1"]["value_max_abs_err"] > VALUE_ATOL or out["k1"]["grad_max_abs_err"] > GRAD_ATOL:
+        raise RuntimeError(f"K1 is off float64 at posterior positions: {out['k1']}")
     return out
 
 
@@ -223,17 +329,49 @@ def _stage1_job(target, chains, dim, burnin, post):
     )
 
 
+def _marked(sampler_cls, marks):
+    """``sampler_cls`` that appends the K1 count to ``marks`` when a job
+    initialises it: as stage 2's sampler it reads stage 1's launches."""
+    import dataclasses
+
+    from klara_tpu_torch.ops import logreg
+
+    @dataclasses.dataclass(frozen=True)
+    class Marked(sampler_cls):
+        def init(self, *args, **kw):
+            marks.append(logreg.KERNEL_LAUNCHES)
+            return super().init(*args, **kw)
+
+    return Marked
+
+
+def _stage1_adapted(info):
+    """Stage 1's adapted step size and trajectory length (pooled: one value)."""
+    end = info["stage1_state"]
+    eps, lam = float(end.tune.step.mean()), float(torch.exp(end.log_traj).mean())
+    return {"stage1_eps": eps, "stage1_lambda": lam, "stage1_leaps_at_lambda": lam / eps}
+
+
+def _check_launches(path, got, allowance=LAUNCH_ALLOWANCE):
+    want = K1_LAUNCHES_BEFORE[path]
+    if abs(got - want) > allowance * want:
+        raise RuntimeError(f"{path}: {got} K1 launches, over {allowance:.0%} from the "
+                           f"earlier design's {want}")
+
+
 def run_main_path(device="cuda", chains=CHAINS, dim=DIM, n_data=N_DATA, burnin=BURNIN,
                   post=POST):
     """chees_precond at bench size through the port's public entry points;
-    returns its results and the x-space (mean, sd, ESS) per dim."""
+    returns its results, the x-space (mean, sd, ESS) per dim and what
+    ``profile_chees`` starts from (stage 2's job, final state, generator)."""
     import klara_tpu_torch as kt
     from klara_tpu_torch.models.examples import synthetic_logistic_regression
     from klara_tpu_torch.ops import logreg
 
     target, X, y = synthetic_logistic_regression(dim=dim, n_data=n_data, device=device)
-    s2 = kt.HMC(leapstep=0.05, nleaps=8, trajectory_length=2.0, jitter=0.9,
-                jitter_style="step", max_nleaps=64)
+    stage2_start = []
+    s2 = _marked(kt.HMC, stage2_start)(leapstep=0.05, nleaps=8, trajectory_length=2.0,
+                                       jitter=0.9, jitter_style="step", max_nleaps=64)
     job = _stage1_job(target, chains, dim, burnin, post)
     gen = torch.Generator(device=device).manual_seed(42)
     x0 = 0.1 * torch.randn(chains, dim, generator=gen, device=device)
@@ -270,16 +408,61 @@ def run_main_path(device="cuda", chains=CHAINS, dim=DIM, n_data=N_DATA, burnin=B
         "leaps_per_draw": leaps,
         "eps_final": float(chain.final_state.tune.step.mean()),
         "trace_dtype": str(values.dtype),
+        **_stage1_adapted(info),
         "k1_launches": launches,
+        "k1_launches_stage1": stage2_start[0],
+        "k1_launches_stage2": launches - stage2_start[0],
         "k1_max_abs_err_on_path": _k1_error(
-            (chain.final_state.position @ chol.T).contiguous(), X, (X.T @ y).contiguous()),
+            (chain.final_state.position @ chol.T).contiguous(), X, y),
     }
     print(f"# chees_precond {chains}x{dim}x{n_data}: {json.dumps(res)}", flush=True)
     if rhat > RHAT_GATE:
         raise RuntimeError(f"rank-R-hat {rhat} > {RHAT_GATE}")
     if not ACCEPT_RANGE[0] <= accept <= ACCEPT_RANGE[1]:
         raise RuntimeError(f"acceptance {accept} outside {ACCEPT_RANGE}")
-    return res, summary
+    if (chains, dim, n_data, burnin, post) == (CHAINS, DIM, N_DATA, BURNIN, POST):
+        _check_launches("stage1", res["k1_launches_stage1"], STAGE1_ALLOWANCE)
+        _check_launches("chees_stage2", res["k1_launches_stage2"])
+    return res, summary, (info["whitened_job"], chain.final_state, gen)
+
+
+def stage1_sensitivity(device="cuda", chains=CHAINS, dim=DIM, n_data=N_DATA, burnin=BURNIN):
+    """Opt-in: stage 1 of the two preconditioned paths alone, with K1 and
+    with the plain version (f32 cuBLAS products) as the target's value+grad,
+    at several generator seeds.  The same sampler, tuners and draws; only
+    the last bits of the value and gradient differ between the two at one
+    seed.  Returns one record per run."""
+    import dataclasses
+
+    import klara_tpu_torch as kt
+    from klara_tpu_torch.models.examples import synthetic_logistic_regression
+    from klara_tpu_torch.ops import logreg
+
+    k1_target, X, y = synthetic_logistic_regression(dim=dim, n_data=n_data, device=device)
+    v = (X.T @ y).contiguous()
+    runs = []
+    for kind, seed in (("k1", 42), ("plain", 42), ("k1", 43), ("plain", 43), ("k1", 44)):
+        evals = [0]
+
+        def value_and_grad(P, kind=kind, evals=evals):
+            evals[0] += 1
+            if kind == "k1":
+                return k1_target.value_and_grad_fn(P)
+            return logreg.logreg_value_grad_reference(P, X, v, 100.0)
+
+        target = dataclasses.replace(k1_target, value_and_grad_fn=value_and_grad)
+        job = dataclasses.replace(_stage1_job(target, chains, dim, burnin, 1),
+                                  mcrange=kt.MCRange(n_steps=burnin + 1, burnin=burnin))
+        gen = torch.Generator(device=device).manual_seed(seed)
+        x0 = 0.1 * torch.randn(chains, dim, generator=gen, device=device)
+        chain, timings = job.run_phased(gen, x0)
+        end = chain.final_state
+        eps, lam = float(end.tune.step.mean()), float(torch.exp(end.log_traj).mean())
+        runs.append({"value_and_grad": kind, "seed": seed, "evaluations": evals[0],
+                     "stage1_eps": eps, "stage1_lambda": lam, "stage1_leaps_at_lambda": lam / eps,
+                     "seconds": timings["warmup_seconds"] + timings["sampling_seconds"]})
+        print(f"# stage 1 alone {chains}x{dim}x{n_data}: {json.dumps(runs[-1])}", flush=True)
+    return runs
 
 
 def run_nuts_precond(chees_summary, device="cuda", chains=CHAINS, dim=DIM,
@@ -293,15 +476,7 @@ def run_nuts_precond(chees_summary, device="cuda", chains=CHAINS, dim=DIM,
     from klara_tpu_torch.ops import logreg
 
     stage2_start = []
-
-    @dataclasses.dataclass(frozen=True)
-    class MarkedNUTS(kt.NUTS):
-        """NUTS that notes the K1 count when stage 2 initialises it."""
-
-        def init(self, *args, **kw):
-            stage2_start.append(logreg.KERNEL_LAUNCHES)
-            return super().init(*args, **kw)
-
+    nuts3 = _marked(kt.NUTS, stage2_start)(max_doublings=3)
     target, X, y = synthetic_logistic_regression(dim=dim, n_data=n_data, device=device)
     job = _stage1_job(target, chains, dim, burnin, post)
     gen = torch.Generator(device=device).manual_seed(42)
@@ -309,7 +484,7 @@ def run_nuts_precond(chees_summary, device="cuda", chains=CHAINS, dim=DIM,
 
     logreg.KERNEL_LAUNCHES = 0
     chain, timings, info = job.run_preconditioned(
-        gen, x0, stage2_replace=dict(sampler=MarkedNUTS(max_doublings=3),
+        gen, x0, stage2_replace=dict(sampler=nuts3,
                                      traj_adaptation=False, diagnostics=("accept", "na")),
         back_transform=False,
     )
@@ -327,7 +502,7 @@ def run_nuts_precond(chees_summary, device="cuda", chains=CHAINS, dim=DIM,
     na = float(chain["na"].to(torch.float64).mean())
     m0, sd0, ess0 = chees_summary
     z = float(((mean - m0).abs() / torch.sqrt(sd**2 / ess + sd0**2 / ess0)).max())
-    data = (X, (X.T @ y).contiguous())
+    data = (X, y)
     k1_err = _k1_error((chain.final_state.position @ chol.T).contiguous(), *data)
     res = {
         "warmup_seconds": timings["warmup_seconds"],
@@ -339,7 +514,9 @@ def run_nuts_precond(chees_summary, device="cuda", chains=CHAINS, dim=DIM,
         "mean_na": na,
         "eps_final": float(chain.final_state.tune.step.mean()),
         "ms_per_step": 1e3 * timings["sampling_seconds"] / post,
+        **_stage1_adapted(info),
         "k1_launches": launches,
+        "k1_launches_stage1": stage2_start[0],
         "k1_launches_stage2": stage2,
         "k1_max_abs_err_on_path": k1_err,
         "max_mean_z_vs_chees": z,
@@ -352,6 +529,8 @@ def run_nuts_precond(chees_summary, device="cuda", chains=CHAINS, dim=DIM,
                            f"7 x {burnin + post} + 1 (init)")
     if z > MEAN_Z_GATE:
         raise RuntimeError(f"nuts_precond and chees_precond means differ by {z} se")
+    if (chains, dim, n_data, burnin, post) == (CHAINS, DIM, N_DATA, BURNIN, POST):
+        _check_launches("stage1", stage2_start[0], STAGE1_ALLOWANCE)
     wjob = dataclasses.replace(info["whitened_job"], sampler=kt.NUTS(max_doublings=3))
     return res, wjob, chain.final_state, chol, gen, data
 
@@ -473,6 +652,59 @@ def profile_nuts(wjob, state, gen, out_dir, window=200, warm=20):
     return res
 
 
+def profile_chees(wjob, state, gen, out_dir, window=200, warm=20):
+    """Opt-in: ``window`` stage-2 sampling steps of chees_precond from phase
+    4's final state under torch.profiler: device busy time, K1's and the
+    whitening GEMMs' share of it, kernels per step, and the idle share
+    against the next ``window`` steps' wall time without the profiler.
+    Writes profile_chees.json and profile_chees.txt under ``out_dir``."""
+    buffers = ({}, {})
+    i0 = wjob.mcrange.burnin + warm
+    state = wjob._loop(state, gen, wjob.mcrange.burnin, i0, False, buffers)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state = wjob._loop(state, gen, i0, i0 + window, False, buffers)
+        torch.cuda.synchronize()
+        wall_profiled = 1e3 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    wjob._loop(state, gen, i0 + window, i0 + 2 * window, False, buffers)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    k1 = [e for e in kernels if "logreg" in e.name]
+    k1_ms = sum(e.time_range.elapsed_us() for e in k1) / 1e3
+    gemm = sum(e.time_range.elapsed_us() for e in kernels
+               if any(s in e.name.lower() for s in ("gemm", "cutlass", "xmma"))) / 1e3
+    res = {
+        "window_steps": window,
+        "device_kernels_per_step": len(kernels) / window,
+        "device_busy_ms_per_step": busy / window,
+        "wall_ms_per_step_profiled": wall_profiled / window,
+        "wall_ms_per_step": wall / window,
+        "idle_share_profiled": 1.0 - busy / wall_profiled,
+        # profiled device busy time over the unprofiled window's wall time
+        "idle_share_est": 1.0 - busy / wall,
+        "k1_kernels": len(k1),
+        "k1_ms_each": k1_ms / max(len(k1), 1),
+        "k1_share_of_busy": k1_ms / busy,
+        "gemm_share_of_busy": gemm / busy,
+        "eps_mean": float(state.tune.step.mean()),
+    }
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "profile_chees.json"), "w") as f:
+        json.dump(res, f, indent=1)
+    with open(os.path.join(out_dir, "profile_chees.txt"), "w") as f:
+        try:
+            f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+        except (KeyError, AttributeError):  # torch versions before the device_* names
+            f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
+    print(f"# chees_precond stage-2 profile: {json.dumps(res)}", flush=True)
+    return res
+
+
 def check_trees_agree(state, target, gen, max_doublings, n_steps=TREE_STEPS):
     """Both tree forms on the same draws from ``state``, ``n_steps`` steps:
     per chain the leapfrog arithmetic is the same, so the new positions
@@ -520,7 +752,7 @@ def run_nuts_looped(wjob, state, chol, gen, na_static, data, chains=SMALL_CHAINS
                     burnin=BURNIN, post=LOOPED_POST):
     """Phase 7: the looped tree on the whitened target from phase 5's
     first ``chains`` final positions; then K1 on its final positions
-    (``data``: X and Xᵀy), both tree forms on the same draws and both timed
+    (``data``: X and y), both tree forms on the same draws and both timed
     from that state."""
     import dataclasses
 
@@ -561,6 +793,8 @@ def run_nuts_looped(wjob, state, chol, gen, na_static, data, chains=SMALL_CHAINS
         raise RuntimeError(f"looped-tree rank-R-hat {rhat} > {RHAT_GATE}")
     if abs(na - na_static) > 0.1 * na_static:
         raise RuntimeError(f"looped mean na {na} vs static {na_static}: over 10% apart")
+    if (chains, burnin, post) == (SMALL_CHAINS, BURNIN, LOOPED_POST):
+        _check_launches("nuts_looped", launches)
     return res
 
 
@@ -604,8 +838,7 @@ def run_nuts_raw(device="cuda", chains=SMALL_CHAINS, dim=DIM, n_data=N_DATA,
         "leaves_per_step": float(chain["na"].to(torch.float64).mean()),
         "eps_final": float(chain.final_state.tune.step.mean()),
         "k1_launches": launches,
-        "k1_max_abs_err_on_path": _k1_error(
-            chain.final_state.position.contiguous(), X, (X.T @ y).contiguous()),
+        "k1_max_abs_err_on_path": _k1_error(chain.final_state.position.contiguous(), X, y),
         "trees_stopped_inside": check_trees_agree(chain.final_state, target, gen, 5),
     }
     print(f"# nuts {chains}x{dim}x{n_data}: {json.dumps(res)}", flush=True)
@@ -614,6 +847,8 @@ def run_nuts_raw(device="cuda", chains=SMALL_CHAINS, dim=DIM, n_data=N_DATA,
     if res["trees_stopped_inside"] == 0:
         raise RuntimeError("no depth-5 tree stopped inside its last subtree: the "
                            "tree-form check did not reach the checkpoint slots")
+    if (chains, dim, n_data, burnin, post) == (SMALL_CHAINS, DIM, N_DATA, BURNIN, RAW_POST):
+        _check_launches("nuts", launches)
     return res
 
 
@@ -832,11 +1067,21 @@ def main():
     print("# " + _build.build_log.strip().replace("\n", "\n# "), flush=True)
 
     small = check_k1(5, 7, 300)
-    big = check_k1(CHAINS, DIM, N_DATA, timed=True)
-    chees, chees_summary = run_main_path()
+    ragged = check_k1(200, 100, 1000)
+    mid = check_k1(SMALL_CHAINS, DIM, N_DATA, timed=True)
+    big = check_k1(CHAINS, DIM, N_DATA, timed=True, single_pass=True)
+    check_k1_against_float64()
+    if "--stage1-sensitivity" in sys.argv:
+        stage1_sensitivity()
+        print(card)
+        return
+    profile_dir = sys.argv[sys.argv.index("--profile") + 1] if "--profile" in sys.argv else None
+    chees, chees_summary, chees_end = run_main_path()
+    if profile_dir:
+        profile_chees(*chees_end, profile_dir)
+    del chees_end
     nuts, wjob, state, chol, gen, data = run_nuts_precond(chees_summary)
     check_no_host_read(wjob, state, gen)
-    profile_dir = sys.argv[sys.argv.index("--profile") + 1] if "--profile" in sys.argv else None
     if profile_dir:
         profile_nuts(wjob, state, gen, profile_dir)
     looped = run_nuts_looped(wjob, state, chol, gen, nuts["mean_na"], data)
@@ -858,17 +1103,30 @@ def main():
                    "nuts_precond": nuts["k1_max_abs_err_on_path"],
                    "nuts_looped": looped["k1_max_abs_err_on_path"],
                    "nuts": raw["k1_max_abs_err_on_path"]}
+    # 3 TF32 passes x 2 products x 2*C*N*D operations over 495 TFLOP/s: 0.041 ms at the
+    # main shape; the 13.6 MB of compulsory traffic would take 0.004 ms
+    bound_ms, bound_by = k1_bound_ms(CHAINS, DIM, N_DATA)
     kernels = {"kernels": [{
         "name": "K1 logreg_value_grad",
         "route": "cuda",
+        "design": "wgmma",
         "source": "klara_tpu_torch/ops/csrc/logreg.cu",
         "replaces": "klara_tpu/ops/logreg.py:120",
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
-        "max_abs_err": max([small["max_abs_err"], big["max_abs_err"], *err_by_path.values()]),
+        "max_abs_err": max([small["max_abs_err"], ragged["max_abs_err"], mid["max_abs_err"],
+                            big["max_abs_err"], *err_by_path.values()]),
         "max_abs_err_by_path": err_by_path,
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        # no single PyTorch call computes the value and the gradient of this function
+        "library_ms": None,
+        "ms_c4096": mid["ms"],
+        "plain_ms_c4096": mid["plain_ms"],
+        "bound_ms_c4096": k1_bound_ms(SMALL_CHAINS, DIM, N_DATA)[0],
+        "ms_single_pass": big["single_pass"]["ms"],
     }]}
     print(json.dumps(kernels))
     print(card)

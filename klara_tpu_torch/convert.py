@@ -2,8 +2,9 @@
 
 The JAX side maps its pytrees' leaves to numpy arrays with a tree map;
 these functions read the resulting numpy-leaved NamedTuples by field name
-(nothing of JAX is imported) and build the port's tensors.  A Cholesky
-factor needs no converter: it passes as a plain array.
+(nothing of JAX is imported) and build the port's tensors on ``device``
+(None: the card; ``core.device.resolve_device``).  A Cholesky factor needs
+no converter: it passes as a plain array.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from klara_tpu_torch.core.device import resolve_device
 from klara_tpu_torch.jobs.chain import Chain
 from klara_tpu_torch.jobs.gibbs import GibbsChains
 from klara_tpu_torch.models.examples import logistic_regression_target
@@ -20,6 +22,7 @@ from klara_tpu_torch.tuners.tuners import DualAveragingExtra, TuneState
 
 
 def _t(a, device=None):
+    device = resolve_device(device)  # None: the card
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # numpy's bf16 (ml_dtypes) has no torch twin
         return torch.tensor(a.astype(np.float32), device=device).to(torch.bfloat16)

@@ -41,6 +41,7 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from klara_tpu_torch.core.device import resolve_device
 from klara_tpu_torch.core.target import Target
 from klara_tpu_torch.distributions.core import draw_per_chain
 from klara_tpu_torch.jobs.range import MCRange
@@ -128,7 +129,8 @@ class GibbsJob:
     trace_dtype : storage dtype of floating-point traces, e.g. 'bfloat16'
         (only the saved copy rounds; the sweep and final values keep theirs)
     device : where the carried values, the statics and the traces live
-        (None: the device of v0's tensors, the CPU when v0 holds none; a
+        (None: the device of v0's tensors, the card when v0 holds none,
+        and an error naming ``device="cpu"`` where there is no card; a
         tensor of v0 on another device than a given one raises)
     """
 
@@ -272,20 +274,13 @@ class GibbsJob:
 
     def _device_of(self, v0: Dict[str, Any]) -> torch.device:
         """The run's device: ``device`` if given, else the one device of
-        v0's tensors (the CPU when v0 holds none).  Values never move
+        v0's tensors, else the card (``resolve_device``).  Values never move
         between devices: a tensor elsewhere raises."""
-        held = {t.device for t in v0.values() if torch.is_tensor(t)}
-        if self.device is None:
-            if len(held) > 1:
-                raise ValueError(
-                    f"v0 holds tensors on several devices {sorted(map(str, held))}; "
-                    "pass device="
-                )
-            return held.pop() if held else torch.device("cpu")
-        want = torch.device(self.device)
-        for d in held:
-            if d.type != want.type or want.index not in (None, d.index):
-                raise ValueError(f"v0 holds tensors on {d}, but the job's device is {want}")
+        want = resolve_device(self.device, v0.values())
+        if self.device is not None:
+            for d in {t.device for t in v0.values() if torch.is_tensor(t)}:
+                if d.type != want.type or want.index not in (None, d.index):
+                    raise ValueError(f"v0 holds tensors on {d}, but the job's device is {want}")
         return want
 
     def _initial_values(self, v0: Dict[str, Any], prebatched: bool):

@@ -24,6 +24,7 @@ from typing import Any, Optional, Sequence
 
 import torch
 
+from klara_tpu_torch.core.device import resolve_device
 from klara_tpu_torch.core.target import Target, whiten_target
 from klara_tpu_torch.jobs.chain import Chain
 from klara_tpu_torch.jobs.range import MCRange
@@ -153,7 +154,8 @@ class MCJob:
     step_size (initial step override), mass_adaptation / mass_period
     (ensemble diagonal mass), traj_adaptation / traj_lr / traj_start_frac
     (ChEES), trace_dtype (storage dtype of floating sample traces, e.g.
-    'bfloat16'), device (None -> the device of x0)."""
+    'bfloat16'), device (None -> the device of x0 if it is a tensor, else
+    the card; where there is none, an error that names ``device="cpu"``)."""
 
     target: Target
     sampler: Sampler
@@ -191,11 +193,9 @@ class MCJob:
 
     # ------------------------------------------------------------------ init
     def _prepare_x0(self, generator, x0):
-        if x0 is None:
+        if x0 is None:  # the prior draws on its generator's device
             x0 = self.target.sample_prior(generator, self.n_chains)
-        x0 = torch.as_tensor(x0)
-        if self.device is not None:
-            x0 = x0.to(self.device)
+        x0 = torch.as_tensor(x0).to(resolve_device(self.device, (x0,)))
         if x0.dim() == 1:
             x0 = x0.expand(self.n_chains, -1)
         if x0.dim() != 2 or x0.shape[0] != self.n_chains:
@@ -213,9 +213,10 @@ class MCJob:
         return x0
 
     def _init_states(self, generator, x0, momentum=None):
+        # only the Hamiltonian samplers' init takes a momentum
+        kw = {} if momentum is None else {"momentum": momentum}
         states = self.sampler.init(
-            self.target, x0, generator, step_size=self.step_size,
-            tuner=self.tuner, momentum=momentum,
+            self.target, x0, generator, step_size=self.step_size, tuner=self.tuner, **kw
         )
         if self.pooled_tuning and hasattr(states, "tune") and not self.sampler.self_tuning:
             # one shared step: geometric mean of the per-chain searches, μ
@@ -350,8 +351,9 @@ class MCJob:
         dim^-1/4 unless a step size is given.  Returns ``(chain, timings,
         info)``: the trace is mapped back to x = y Lᵀ unless
         ``back_transform=False``; ``timings['warmup_seconds']`` is stage 1
-        in full plus stage 2's warmup; ``info`` holds ``chol`` and the
-        whitened job.  ``warm_stage2`` runs stage 2 once and discards it
+        in full plus stage 2's warmup; ``info`` holds ``chol``, the
+        whitened job and stage 1's final state (its adapted step and
+        trajectory length).  ``warm_stage2`` runs stage 2 once and discards it
         before the timed pass."""
         if tuple(self.monitor) != ("value",):
             raise ValueError(
@@ -371,6 +373,7 @@ class MCJob:
         # the trace may be stored in bf16: covariance, Cholesky and the
         # stage-2 start come back to f32
         x_end = c1.value[-1].to(torch.float32)
+        stage1_state = c1.final_state
         del c1
         chol = ensemble_cholesky(x_end, ridge)
 
@@ -390,7 +393,7 @@ class MCJob:
             + t2["warmup_seconds"],
             "sampling_seconds": t2["sampling_seconds"],
         }
-        return chain, timings, {"chol": chol, "whitened_job": wjob}
+        return chain, timings, {"chol": chol, "whitened_job": wjob, "stage1_state": stage1_state}
 
 
 def ensemble_cholesky(x_end, ridge: float = 1e-6):

@@ -16,11 +16,12 @@ import math
 import numpy as np
 import torch
 
+from klara_tpu_torch.core.device import resolve_device
 from klara_tpu_torch.core.target import Target
 from klara_tpu_torch.data import dataset
 from klara_tpu_torch.distributions import InverseGamma, Normal
 from klara_tpu_torch.models.graph import Data, GenericModel, GibbsParameter
-from klara_tpu_torch.ops.logreg import _softplus, logreg_value_grad
+from klara_tpu_torch.ops.logreg import _softplus, logreg_value_grad, prepare_x
 
 
 def normal_target(dim: int = 2) -> Target:
@@ -37,12 +38,17 @@ def logistic_regression_target(
     loglik(p) = (Xp)ᵀy − Σ softplus(Xp), logprior(p) = −½(pᵀp/λ + d·log 2πλ).
 
     Value and gradient come from one K1 launch per batch of chains;
-    ``analytical_grad`` gives ``grad`` its closed form (else autograd)."""
+    ``analytical_grad`` gives ``grad`` its closed form (else autograd).
+    The target lives on ``device`` (None: the device of X and y if they are
+    tensors, else the card)."""
+    device = resolve_device(device, (X, y))
     X = torch.as_tensor(X, dtype=torch.float32, device=device).contiguous()
     y = torch.as_tensor(y, dtype=torch.float32, device=X.device)
     d = X.shape[1]
     lam = float(prior_var)
     v = (X.T @ y).contiguous()  # Xᵀy, computed once
+    # what K1 wants of X (padding, TF32 split, transposed copy) and y, made once
+    prepared = prepare_x(X, y) if X.device.type == "cuda" else None
 
     def loglikelihood(P):
         logits = P @ X.T
@@ -55,7 +61,7 @@ def logistic_regression_target(
         return v - torch.sigmoid(P @ X.T) @ X - P / lam
 
     def value_and_grad(P):
-        return logreg_value_grad(P.contiguous(), X, v, lam)
+        return logreg_value_grad(P.contiguous(), X, v, lam, prepared=prepared)
 
     return Target.from_loglik_logprior(
         loglikelihood,
@@ -70,6 +76,7 @@ def swiss_logistic_regression(prior_var: float = 100.0, analytical_grad: bool = 
                               device=None):
     """The swiss-banknote workload (200×4, standardised covariates).
     Returns (target, X, y)."""
+    device = resolve_device(device)
     X = np.asarray(dataset("swiss", "measurements"), np.float64)
     y = np.asarray(dataset("swiss", "status"), np.float64)
     X = (X - X.mean(axis=0)) / X.std(axis=0, ddof=1)
@@ -87,6 +94,7 @@ def synthetic_logistic_regression(
 ):
     """D-dim logistic regression: covariates ~ N(0, I), true weights ~ N(0, 1),
     labels Bernoulli(σ(Xw)).  Returns (target, X, y)."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     X = rng.standard_normal((n_data, dim)).astype(np.float32)
     w = rng.standard_normal(dim).astype(np.float32)
@@ -110,6 +118,7 @@ def synthetic_logistic_regression(
 
 
 def rats_data(device=None):
+    device = resolve_device(device)
     age = np.asarray(dataset("rats", "age"), np.float32)          # (5,)
     weight = np.asarray(dataset("rats", "weight"), np.float32)    # (30, 5)
     xc = torch.as_tensor(age - float(age.mean()), device=device)  # centred ages
@@ -125,6 +134,7 @@ def rats_gibbs_model(device=None, nested_alpha=False):
     ``logtarget`` instead of a ``setpdf``, for an MCMC-within-Gibbs block
     (``GibbsJob(model, {"alpha": Nested(...)}, ...)``); every other vertex
     is the same."""
+    device = resolve_device(device)
     xc, Y = rats_data(device)
     n_rats, n_ages = Y.shape
     sxx = float(torch.square(xc).sum())

@@ -67,8 +67,8 @@ def load() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
-        fn = lib.klara_logreg_value_grad_f32
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+        fn = lib.klara_logreg_value_grad_tf32
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
             ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int

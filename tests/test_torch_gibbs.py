@@ -60,7 +60,7 @@ def _full(a, shape):
 @pytest.mark.parametrize("C", [30, 7])
 def test_rats_conditional_parameters_match_jax(C):
     jmodel, jv0 = jex.rats_gibbs_model()
-    tmodel, tv0 = tex.rats_gibbs_model()
+    tmodel, tv0 = tex.rats_gibbs_model(device="cpu")
     vals = _rats_values(C, seed=C)
     jvals = {k: jnp.asarray(v) for k, v in vals.items()}
     tvals = {k: torch.tensor(v) for k, v in vals.items()}
@@ -78,7 +78,7 @@ def test_rats_conditional_parameters_match_jax(C):
 def test_rats_sweep_matches_jax_with_replayed_draws():
     C, i = 30, 3
     jmodel, jv0 = jex.rats_gibbs_model()
-    tmodel, tv0 = tex.rats_gibbs_model()
+    tmodel, tv0 = tex.rats_gibbs_model(device="cpu")
     jjob = jkt.GibbsJob(jmodel, {}, jkt.MCRange(n_steps=10), n_chains=C)
     tjob = kt.GibbsJob(tmodel, {}, kt.MCRange(n_steps=10), n_chains=C)
     vals = _rats_values(C, seed=1)
@@ -114,7 +114,7 @@ def test_rats_sweep_matches_jax_with_replayed_draws():
 
 def test_rats_joint_target_value_and_grad_match_jax():
     jt, jdim, _ = jex.rats_joint_target()
-    tt, tdim, unpack = tex.rats_joint_target()
+    tt, tdim, unpack = tex.rats_joint_target(device="cpu")
     assert jdim == tdim == 65
     vals = _rats_values(9, seed=2)
     p = np.concatenate([vals["alpha"], vals["beta"], vals["alpha_c"][:, None],
@@ -164,7 +164,8 @@ def _corr_sd(chains, key="p1", other="p2"):
 
 
 def test_bivariate_normal_gibbs():
-    job = kt.GibbsJob(_bvn_model(), {}, kt.MCRange(n_steps=4000, burnin=1000), n_chains=16)
+    job = kt.GibbsJob(_bvn_model(), {}, kt.MCRange(n_steps=4000, burnin=1000), n_chains=16,
+                      device="cpu")
     chains = job.run(torch.Generator().manual_seed(0), {"rho": 0.8, "p1": 5.1, "p2": 2.3})
     assert chains.samples["p1"].shape == (3000, 16)
     x1 = chains.flat("p1").numpy()
@@ -176,7 +177,7 @@ def test_bivariate_normal_gibbs():
 
 def test_gibbs_trace_dtype_bf16():
     job = kt.GibbsJob(_bvn_model(), {}, kt.MCRange(n_steps=3000, burnin=500), n_chains=16,
-                      trace_dtype="bfloat16")
+                      trace_dtype="bfloat16", device="cpu")
     chains = job.run(torch.Generator().manual_seed(0), {"rho": 0.8, "p1": 5.1, "p2": 2.3})
     assert chains.samples["p1"].dtype == torch.bfloat16
     assert chains.final_values["p1"].dtype == torch.float32  # only the saved copy rounds
@@ -187,7 +188,8 @@ def test_gibbs_trace_dtype_bf16():
 
 def test_gibbs_resume_continues_from_final_values():
     v0 = {"rho": 0.8, "p1": 0.0, "p2": 0.0}
-    job = kt.GibbsJob(_bvn_model(), {}, kt.MCRange(n_steps=1500, burnin=500), n_chains=16)
+    job = kt.GibbsJob(_bvn_model(), {}, kt.MCRange(n_steps=1500, burnin=500), n_chains=16,
+                      device="cpu")
     gen = torch.Generator().manual_seed(7)
     first = job.run(gen, v0)
     second = job.resume(gen, first, v0)
@@ -202,7 +204,8 @@ def test_transformation_block():
     p = kt.GibbsParameter("p", setpdf=lambda v: td.Normal(0.0, 1.0))
     t = kt.Transformation("t", transform=lambda v: torch.square(v["p"]))
     model = kt.GenericModel([p, t], edges=[("p", "t")])
-    job = kt.GibbsJob(model, {}, kt.MCRange(n_steps=2000, burnin=100), n_chains=8)
+    job = kt.GibbsJob(model, {}, kt.MCRange(n_steps=2000, burnin=100), n_chains=8,
+                      device="cpu")
     chains = job.run(torch.Generator().manual_seed(3), {"p": 0.0, "t": 0.0})
     tt = chains.flat("t").numpy()
     np.testing.assert_allclose(tt.mean(), 1.0, atol=0.1)  # E[p²] = 1
@@ -219,7 +222,7 @@ def test_data_update_hook_fires_before_the_blocks():
     p = kt.GibbsParameter("p", setpdf=lambda v: td.Normal(v["count"].to(torch.float32), 1e-3))
     q = kt.GibbsParameter("q", setpdf=lambda v: td.Normal(v["p"], 1.0))
     job = kt.GibbsJob(kt.GenericModel([count, p, q]), {}, kt.MCRange(n_steps=20, burnin=5),
-                      n_chains=4, monitor=["p", "q", "count"])
+                      n_chains=4, monitor=["p", "q", "count"], device="cpu")
     chains = job.run(torch.Generator().manual_seed(0),
                      {"count": 0, "p": 0.0, "q": torch.zeros((), dtype=torch.float64)})
     assert chains.final_values["count"].dtype == torch.int32
@@ -246,7 +249,7 @@ MWG_V0 = {"rho": 0.8, "p1": np.zeros(1, np.float32), "p2": np.zeros(1, np.float3
 
 def test_gibbs_nested_mh_acceptance_diagnostics():
     job = kt.GibbsJob(_mwg_model(), {"p1": kt.Nested(kt.MH(sigma=0.8), n_steps=5)},
-                      kt.MCRange(n_steps=2000, burnin=500), n_chains=8)
+                      kt.MCRange(n_steps=2000, burnin=500), n_chains=8, device="cpu")
     chains = job.run(torch.Generator().manual_seed(4), MWG_V0)
     acc = chains["p1.accept"].numpy()
     assert acc.shape == (chains.samples["p1"].shape[0], 8)
@@ -256,7 +259,8 @@ def test_gibbs_nested_mh_acceptance_diagnostics():
     np.testing.assert_allclose(corr, 0.8, atol=0.07)
     np.testing.assert_allclose(sd, 1.0, atol=0.12)
     no_diag = kt.GibbsJob(_mwg_model(), {"p1": kt.Nested(kt.MH(sigma=0.8))},
-                          kt.MCRange(n_steps=20), n_chains=2, record_diagnostics=False)
+                          kt.MCRange(n_steps=20), n_chains=2, record_diagnostics=False,
+                          device="cpu")
     assert no_diag.run(torch.Generator().manual_seed(0), MWG_V0).diagnostics == {}
 
 
@@ -268,7 +272,7 @@ def test_gibbs_nested_tuner_and_reset_from_prior():
                      tuner=kt.AcceptanceRateTuner(targetrate=0.44, period=5),
                      reset_from_prior=True)
     job = kt.GibbsJob(_mwg_model(setprior=lambda v: td.Normal(0.0, 1.5)), {"p1": spec},
-                      kt.MCRange(n_steps=500, burnin=100), n_chains=32)
+                      kt.MCRange(n_steps=500, burnin=100), n_chains=32, device="cpu")
     chains = job.run(torch.Generator().manual_seed(5), MWG_V0)
     corr, sd = _corr_sd(chains)
     np.testing.assert_allclose(corr, 0.8, atol=0.08)
@@ -299,7 +303,7 @@ def test_gibbs_nested_hmc_with_the_hoisted_step_search(monkeypatch):
     spec = kt.Nested(kt.HMC(leapstep=0.1, nleaps=4), n_steps=6, burnin=3,
                      tuner=kt.DualAveragingTuner(0.8, 3))
     job = kt.GibbsJob(_mwg_model(), {"p1": spec}, kt.MCRange(n_steps=400, burnin=100),
-                      n_chains=32)
+                      n_chains=32, device="cpu")
     assert job.sweep["p1"].sampler.dynamic_nleaps
     assert job._needs_step_hoist(job.sweep["p1"])
     assert not job._needs_step_hoist(kt.Nested(kt.HMC(), step_size=0.1,
@@ -314,7 +318,7 @@ def test_gibbs_nested_hmc_with_the_hoisted_step_search(monkeypatch):
 
 def test_gibbs_outopts_none_keeps_the_final_value_only():
     job = kt.GibbsJob(_bvn_model(), {}, kt.MCRange(n_steps=40, burnin=10), n_chains=4,
-                      outopts={"p2": {"destination": "none"}})
+                      outopts={"p2": {"destination": "none"}}, device="cpu")
     chains = job.run(torch.Generator().manual_seed(6), {"rho": 0.8, "p1": 0.0, "p2": 0.0})
     assert "p2" not in chains.samples and "p2" in chains.final_values
     assert chains.samples["p1"].shape == (30, 4)
@@ -354,11 +358,12 @@ def test_gibbs_job_validation_errors(case):
 
 def test_gibbs_missing_v0_raises():
     model = kt.GenericModel([kt.Data("y"), kt.GibbsParameter("p", setpdf=lambda v: td.Normal())])
-    job = kt.GibbsJob(model, {}, kt.MCRange(n_steps=10))
+    job = kt.GibbsJob(model, {}, kt.MCRange(n_steps=10), device="cpu")
     with pytest.raises(ValueError, match="missing"):
         job.run(torch.Generator(), {"p": 0.0})
     with pytest.raises(ValueError, match="setpdf"):
-        kt.GibbsJob(kt.GenericModel([kt.GibbsParameter("p")]), {}, kt.MCRange(n_steps=2)).run(
+        kt.GibbsJob(kt.GenericModel([kt.GibbsParameter("p")]), {}, kt.MCRange(n_steps=2),
+                    device="cpu").run(
             torch.Generator(), {"p": 0.0})
 
 
@@ -375,7 +380,7 @@ def test_gamma_conditional_shares_its_draw_within_a_chain_as_in_jax():
     jchains = jkt.GibbsJob(model(jkt, jd, jnp.asarray(rate)), {}, jkt.MCRange(n_steps=3),
                            n_chains=C).run(jax.random.key(0), {"g": jnp.zeros(3)})
     tchains = kt.GibbsJob(model(kt, td, torch.tensor(rate)), {}, kt.MCRange(n_steps=3),
-                          n_chains=C).run(torch.Generator().manual_seed(0),
+                          n_chains=C, device="cpu").run(torch.Generator().manual_seed(0),
                                           {"g": np.zeros(3, np.float32)})
     for g in (np.asarray(jchains.samples["g"]), tchains.samples["g"].numpy()):
         assert g.shape == (3, C, 3)
@@ -396,12 +401,12 @@ def test_resume_from_jax_chains_through_convert():
     v0 = {"rho": np.float32(0.8), "p1": 1.0, "p2": 2.0}
     jchains = jkt.GibbsJob(jmodel, {}, jkt.MCRange(n_steps=20), n_chains=4,
                            trace_dtype="bfloat16").run(jax.random.key(0), v0)
-    tchains = convert.gibbs_chains_from_numpy(jax.tree.map(np.asarray, jchains))
+    tchains = convert.gibbs_chains_from_numpy(jax.tree.map(np.asarray, jchains), device="cpu")
     assert tchains.samples["p1"].dtype == torch.bfloat16 and tchains.samples["p1"].shape == (20, 4)
     np.testing.assert_array_equal(tchains.final_values["p2"].numpy(),
                                   np.asarray(jchains.final_values["p2"]))
-    out = kt.GibbsJob(_bvn_model(), {}, kt.MCRange(n_steps=5), n_chains=4).resume(
-        torch.Generator().manual_seed(0), tchains, convert.gibbs_values_from_numpy(v0))
+    out = kt.GibbsJob(_bvn_model(), {}, kt.MCRange(n_steps=5), n_chains=4, device="cpu").resume(
+        torch.Generator().manual_seed(0), tchains, convert.gibbs_values_from_numpy(v0, device="cpu"))
     assert out.samples["p1"].shape == (5, 4) and out.final_values["p1"].dtype == torch.float32
 
 
@@ -409,13 +414,14 @@ def test_gibbs_job_takes_its_device_from_v0():
     """With no ``device`` the job keeps v0's tensors where they are (here
     the meta device stands in for the card) and never moves them to the
     CPU; a device given explicitly must hold v0's tensors."""
-    model, v0 = tex.rats_gibbs_model()
+    model, v0 = tex.rats_gibbs_model(device="cpu")
     meta = {k: v.to("meta") for k, v in v0.items()}
     job = kt.GibbsJob(model, {}, kt.MCRange(n_steps=3), n_chains=4)
     values = job._initial_values({**meta, "alpha_c": 150.0}, prebatched=False)
     assert {t.device.type for t in values.values()} == {"meta"}
     assert values["alpha"].shape == (4, 30) and values["alpha_c"].shape == (4,)
-    assert job._device_of({"alpha_c": 150.0}) == torch.device("cpu")
+    with pytest.raises(RuntimeError, match='pass device="cpu"'):
+        job._device_of({"alpha_c": 150.0})  # no tensor, no device, no card here
     with pytest.raises(ValueError, match="job's device is cpu"):
         kt.GibbsJob(model, {}, n_chains=4, device="cpu")._initial_values(meta, prebatched=False)
     with pytest.raises(ValueError, match="several devices"):

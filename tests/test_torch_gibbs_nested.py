@@ -67,7 +67,7 @@ def run_jax(chains, sweeps, burnin, seed=0, nested=True):
 
 
 def run_port(chains, sweeps, burnin, seed=0):
-    model, v0 = tex.rats_gibbs_model(nested_alpha=True)
+    model, v0 = tex.rats_gibbs_model(nested_alpha=True, device="cpu")
     sweep = {"alpha": kt.Nested(kt.HMC(leapstep=0.05, nleaps=4), n_steps=4,
                                 tuner=kt.DualAveragingTuner(0.8, 4))}
     job = kt.GibbsJob(model, sweep, kt.MCRange(n_steps=sweeps, burnin=burnin),

@@ -26,7 +26,7 @@ def runs():
     model, v0 = jex.rats_gibbs_model()
     jchains = jkt.GibbsJob(model, {}, jkt.MCRange(n_steps=SWEEPS, burnin=BURNIN), n_chains=C,
                            monitor=MONITOR).run(jax.random.key(0), v0)
-    model, v0 = tex.rats_gibbs_model()
+    model, v0 = tex.rats_gibbs_model(device="cpu")
     tchains = kt.GibbsJob(model, {}, kt.MCRange(n_steps=SWEEPS, burnin=BURNIN), n_chains=C,
                           monitor=MONITOR).run(torch.Generator().manual_seed(0), v0)
     return jchains, tchains

@@ -35,7 +35,7 @@ def problem():
     p0 = rng.standard_normal((C, D)).astype(np.float32)
     inv_mass = rng.uniform(0.5, 2.0, (C, D)).astype(np.float32)
     jt = jex.logistic_regression_target(X, y, 10.0)
-    tt = convert.target_arrays(X, y, 10.0)
+    tt = convert.target_arrays(X, y, 10.0, device="cpu")
     return jt, tt, x0, p0, inv_mass
 
 
@@ -109,7 +109,7 @@ def test_hmc_step_matches_jax(problem):
         return p0, jax.random.uniform(k_acc), jax.random.uniform(k_jit)
 
     p0, u, u_jit = (torch.tensor(np.asarray(a)) for a in jax.vmap(draws)(keys, state))
-    tstate = convert.hmc_state_from_numpy(jax.tree.map(np.asarray, state))
+    tstate = convert.hmc_state_from_numpy(jax.tree.map(np.asarray, state), device="cpu")
     new, info = ts.step(tstate, tt, momentum=p0, u=u, jitter_u=u_jit)
 
     np.testing.assert_array_equal(info.extras["nleaps"].numpy(), np.asarray(info_ref.extras["nleaps"]))

@@ -152,3 +152,18 @@ def test_rate_scores_match_jax():
         ref = getattr(jtun, name)(jnp.asarray(x), k)
         out = getattr(ttun, name)(torch.tensor(x), k)
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-7)
+
+
+def test_mcjob_runs_mh():
+    """``MCJob`` hands ``init`` a momentum only when it has one: MH's init
+    takes none.  Random-walk MH on a 2-d standard normal from 64 chains
+    lands on its mean and variance (MCSE ~0.03 at 64 x 1500 draws of ESS
+    per draw ~0.2)."""
+    target = kt.Target(logdensity_fn=lambda x: -0.5 * (x * x).sum(-1), dim=2)
+    job = kt.MCJob(target, kt.MH(1.0), kt.MCRange(n_steps=2000, burnin=500), n_chains=64,
+                   monitor=("value",))
+    chain = job.run(torch.Generator().manual_seed(0), torch.zeros(64, 2))
+    x = chain.value.reshape(-1, 2)
+    assert chain.value.shape == (1500, 64, 2)
+    assert float(x.mean(0).abs().max()) < 0.15
+    assert float((x.var(0) - 1.0).abs().max()) < 0.2

@@ -39,7 +39,7 @@ def problem():
     x0 = (0.3 * rng.standard_normal((C, D))).astype(np.float32)
     inv_mass = rng.uniform(0.5, 2.0, (C, D)).astype(np.float32)
     jt = jex.logistic_regression_target(X, y, 10.0)
-    tt = convert.target_arrays(X, y, 10.0)
+    tt = convert.target_arrays(X, y, 10.0, device="cpu")
     return jt, tt, x0, inv_mass
 
 
@@ -88,7 +88,7 @@ def _step_both(problem, eps, key=9, **kw):
         lambda k, s: _jax_draws(k, s, md, static))(keys, state))
     draws = NUTSDraws(torch.tensor(p0), torch.tensor(su), torch.tensor(dirs.T),
                       torch.tensor(swaps.T), torch.tensor(takes.T))
-    tstate = convert.nuts_state_from_numpy(jax.tree.map(np.asarray, state))
+    tstate = convert.nuts_state_from_numpy(jax.tree.map(np.asarray, state), device="cpu")
     new, info = ts.step(tstate, tt, draws=draws)
     return (new_ref, info_ref), (new, info)
 
@@ -208,7 +208,7 @@ def test_nuts_state_round_trip(problem):
     state = jax.vmap(lambda k, x: jkt.NUTS().init(k, jt, x, tuner=tuner))(
         jax.random.split(jax.random.key(3), C), jnp.asarray(x0))
     nstate = jax.tree.map(np.asarray, state)
-    tstate = convert.nuts_state_from_numpy(nstate)
+    tstate = convert.nuts_state_from_numpy(nstate, device="cpu")
     assert isinstance(tstate, kt.NUTSState)
     for a, b in zip(jax.tree.leaves(nstate), jax.tree.leaves(tuple(tstate))):
         np.testing.assert_array_equal(b.numpy(), a)

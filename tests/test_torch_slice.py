@@ -42,7 +42,7 @@ def runs():
     jchain, _, _ = jkt.MCJob(jt, s1, **kw).run_preconditioned(
         jax.random.key(0), jnp.asarray(x0), stage2_replace=repl)
 
-    tt, _, _ = tex.synthetic_logistic_regression(dim=D, n_data=N)
+    tt, _, _ = tex.synthetic_logistic_regression(dim=D, n_data=N, device="cpu")
     s1, repl, kw = _settings(kt)
     tjob = kt.MCJob(tt, s1, **kw)
     tchains = [

@@ -62,7 +62,7 @@ def test_chain_objects_and_acceptance_match_jax():
     acc = (np.random.default_rng(3).random((50, 6)) < 0.7)
     jc = JChain(samples={"value": jnp.asarray(x)}, diagnostics={"accept": jnp.asarray(acc)},
                 final_state=None)
-    tc = convert.chain_from_numpy({"value": x}, {"accept": acc})
+    tc = convert.chain_from_numpy({"value": x}, {"accept": acc}, device="cpu")
     _close(kt.stats.acceptance(tc), jkt.stats.acceptance(jc), 1e-6)
     _close(kt.stats.acceptance(tc, per_chain=True), jkt.stats.acceptance(jc, per_chain=True), 1e-6)
     _close(kt.stats.mean(tc), jkt.stats.mean(jc), 1e-6)

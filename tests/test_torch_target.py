@@ -39,7 +39,7 @@ def _logreg_data(C=6, D=4, N=300, seed=0):
 def test_logreg_target_matches_jax():
     X, y, P = _logreg_data()
     jt = jex.logistic_regression_target(X, y, 5.0)
-    tt = convert.target_arrays(X, y, 5.0)
+    tt = convert.target_arrays(X, y, 5.0, device="cpu")
     Pt = torch.from_numpy(P)
     v_ref, g_ref = _jax_batched(jt, P)
     v, g = tt.logdensity_and_grad(Pt)  # K1's plain version
@@ -56,11 +56,11 @@ def test_synthetic_and_swiss_data_match_jax():
     """Same numpy code, bit-identical data; the swiss data is read from the
     JAX package's file."""
     _, Xj, yj = jex.synthetic_logistic_regression(dim=6, n_data=50, seed=3)
-    _, Xt, yt = tex.synthetic_logistic_regression(dim=6, n_data=50, seed=3)
+    _, Xt, yt = tex.synthetic_logistic_regression(dim=6, n_data=50, seed=3, device="cpu")
     np.testing.assert_array_equal(np.asarray(Xj), Xt.numpy())
     np.testing.assert_array_equal(np.asarray(yj), yt.numpy())
     jt, Xj, yj = jex.swiss_logistic_regression()
-    tt, Xt, yt = tex.swiss_logistic_regression()
+    tt, Xt, yt = tex.swiss_logistic_regression(device="cpu")
     np.testing.assert_array_equal(np.asarray(Xj), Xt.numpy())
     np.testing.assert_array_equal(np.asarray(yj), yt.numpy())
     P = np.random.default_rng(1).standard_normal((5, 4)).astype(np.float32)
@@ -126,7 +126,7 @@ def test_whiten_target_matches_jax():
     A = rng.standard_normal((4, 4)).astype(np.float32)
     chol = np.linalg.cholesky(A @ A.T / 4 + np.eye(4, dtype=np.float32)).astype(np.float32)
     jt = jkt.whiten_target(jex.logistic_regression_target(X, y, 5.0), jnp.asarray(chol))
-    tt = kt.whiten_target(convert.target_arrays(X, y, 5.0), torch.from_numpy(chol))
+    tt = kt.whiten_target(convert.target_arrays(X, y, 5.0, device="cpu"), torch.from_numpy(chol))
     v_ref, g_ref = _jax_batched(jt, P)
     v, g = tt.logdensity_and_grad(torch.from_numpy(P))
     _close(v, v_ref)

@@ -72,7 +72,7 @@ def _jobs():
     jjob = jkt.MCJob(jex.logistic_regression_target(X, y, 10.0), jkt.HMC(**kw),
                      jkt.MCRange(n_steps=BURNIN + 10, burnin=BURNIN),
                      tuner=jkt.DualAveragingTuner(0.8, BURNIN), **common)
-    tjob = kt.MCJob(convert.target_arrays(X, y, 10.0), kt.HMC(**kw),
+    tjob = kt.MCJob(convert.target_arrays(X, y, 10.0, device="cpu"), kt.HMC(**kw),
                     kt.MCRange(n_steps=BURNIN + 10, burnin=BURNIN),
                     tuner=kt.DualAveragingTuner(0.8, BURNIN), **common)
     return jjob, tjob, x0
@@ -122,9 +122,9 @@ def test_adaptation_hooks_match_one_jax_scan_step(i):
     tinfo = Info(*(torch.tensor(np.asarray(a)) for a in infos[:3]),
                  extras={k: torch.tensor(np.asarray(v)) for k, v in infos.extras.items()})
     out = tjob.adapt(torch.tensor(np.asarray(states.position)),
-                     convert.hmc_state_from_numpy(_np(mid)), tinfo, i,
+                     convert.hmc_state_from_numpy(_np(mid), device="cpu"), tinfo, i,
                      torch.tensor(np.asarray(frac)))
-    ref = convert.hmc_state_from_numpy(_np(post))
+    ref = convert.hmc_state_from_numpy(_np(post), device="cpu")
     # the ChEES gradient is a mean of products of chain-mean-centred
     # sums: f32 reduction order gives ~1e-6 relative noise in log λ, Adam
     # moments, and the ensemble variance
