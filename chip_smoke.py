@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port (klara_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                # phases 1-11
+    python3 chip_smoke.py                # phases 1-20
+    python3 chip_smoke.py --zoo-only     # phases 1-4 and 12-20 (the sampler zoo)
     python3 chip_smoke.py --profile DIR  # also profile stage 2 of both logreg rows and the Gibbs sweep
     python3 chip_smoke.py --stage1-sensitivity  # only: stage 1 with K1 and with the plain version, three seeds
 
@@ -60,7 +61,31 @@ Phases, each of which raises on failure (the script then exits non-zero):
    acceptance, that the posterior means of alpha_c and beta_c agree with
    phase 9's within 5 combined standard errors, and those of alpha_c,
    beta_c and sigma2_c with the JAX package's for the same settings
-   (``JAX_NESTED``).
+   (``JAX_NESTED``);
+12-18. run the sampler zoo (``zoo_logreg``) on the same 100-dim target through
+   ``MCJob.run_phased`` at 4096 chains from phase 4's final positions in x
+   space, which are stationary draws: MALA under pooled dual averaging at
+   0.574 (12; again at 16384 chains, 13), RAM (14), AM (15), AMWG (16), the
+   slice sampler (17) and SMMALA with autograd's Hessian (18), with the step
+   counts of ``ZOO_STEPS``.  Every run must keep phase 4's posterior: each
+   posterior mean within 5 combined standard errors (the run's taken across
+   its chains' means), each sd within 5 standard errors, rank-R̂ between the
+   ensemble's distributions at the saved times at most 1.02; and land its
+   rate: MALA 0.574 ± 0.05, RAM 0.234 ± 0.05, AMWG's mean per-coordinate
+   rate 0.44 ± 0.1, AM above 0.05, slice above 0.99.  MALA must launch K1
+   once a step and once at init; K1 is held against its plain version on
+   MALA's and SMMALA's final positions.  Each prints ms per step, K1
+   launches, host reads per step (counted under sync debug mode "warn"; the
+   slice sampler's own count per sweep too), acceptance, and the split-chain
+   rank-R̂ and min ESS, which say how far the chains mixed and are not gated:
+   the raw posterior's covariance has a condition number of ~600, which no
+   sampler of the zoo but SMMALA sees through;
+19. run ARS on the 100-dim normal under the envelope N(0, 2²·I): the accepted
+   share must equal the mean acceptance probability and the carried
+   log-target the target's;
+20. record all 13 monitored slots on the swiss target (D=4, 64 chains, 50
+   draws, MALA): shapes, finiteness, and target = likelihood + prior for the
+   log-density, gradient, tensor and dtensor slots.
 
 The Gibbs paths launch no K1 (their sweep is plain torch ops in both
 packages); the kernels line records their K1 count, 0.
@@ -143,6 +168,25 @@ NESTED_ACCEPT_RANGE = (0.2, 0.99)
 # file's test holds the two packages' nested runs together at 128 chains.
 JAX_NESTED = {"alpha_c": (242.65524, 0.00112), "beta_c": (6.185698, 0.0000507),
               "sigma2_c": (37.44109, 0.00411)}
+# the sampler zoo on the bench target (phases 12-20): 4096 chains from phase 4's
+# final positions; steps per sampler, set so that the whole script stays inside
+# its time limit (PERF.md section 4 states each count)
+ZOO_CHAINS, MALA_RATE, ARS_STEPS = 4096, 0.574, 500
+# Haario's AM feeds the chain's current point into its proposal covariance, so at a
+# finite count k the kernel is not reversible and the ensemble contracts by O(D/k): in
+# both packages alike (tests/test_torch_zoo_dist.py pins it on a 20-dim normal from exact
+# draws: sds 0.86-0.88 of the truth at k in 100..700).  AM's sd gate is this wide;
+# every other sampler's is 5 standard errors (5.5% at 4096 chains).
+AM_SD_GATE = 0.15
+ZOO_STEPS = {
+    "mala": dict(burnin=500, post=2000),
+    "mala_16384": dict(burnin=500, post=2000, thinning=2),
+    "ram": dict(burnin=1500, post=1500, thinning=2),
+    "am": dict(burnin=500, post=1500, thinning=2),
+    "amwg": dict(burnin=100, post=200),
+    "slice": dict(burnin=5, post=30),
+    "smmala": dict(burnin=100, post=150),
+}
 # static vs looped tree on the same draws: positions and discrete outcomes
 # exact; `a` sums up to 31 f32 terms in another order
 TREE_STEPS, A_RTOL = 10, 1e-5
@@ -295,15 +339,20 @@ def _chunk(n_draws, dim):
     return min(2048, max(128, (1 << 28) // (nfft * dim)))
 
 
-def _rhat_max(values, chol, max_draws=512, dim_chunk=16, chains_cap=2048):
+def _rhat_max(values, chol, max_draws=512, dim_chunk=16, chains_cap=2048, over_time=False):
     """Max over coordinates of rank-R̂ on up to 512 evenly thinned draws of
     up to 2048 chains, back-transformed per dim chunk (as bench.py; chol
-    None: the identity)."""
+    None: the identity).  ``over_time`` swaps the roles: each saved time
+    point is a "chain" whose draws are the chains' positions at that time,
+    so the statistic compares the ensemble's distribution between times and
+    says nothing of how fast a chain moves."""
     import klara_tpu_torch as kt
 
     values = values[:, :chains_cap]
     step = max(1, values.shape[0] // max_draws)
     y = values[::step].to(torch.float32)
+    if over_time:
+        y = y.transpose(0, 1)
     if chol is None:
         return float(kt.stats.rhat_rank(y).max())
     return max(
@@ -363,7 +412,8 @@ def run_main_path(device="cuda", chains=CHAINS, dim=DIM, n_data=N_DATA, burnin=B
                   post=POST):
     """chees_precond at bench size through the port's public entry points;
     returns its results, the x-space (mean, sd, ESS) per dim and what
-    ``profile_chees`` starts from (stage 2's job, final state, generator)."""
+    ``profile_chees`` starts from (stage 2's job, final state, generator) and
+    the final positions in x space (stationary draws, the zoo's start)."""
     import klara_tpu_torch as kt
     from klara_tpu_torch.models.examples import synthetic_logistic_regression
     from klara_tpu_torch.ops import logreg
@@ -423,7 +473,8 @@ def run_main_path(device="cuda", chains=CHAINS, dim=DIM, n_data=N_DATA, burnin=B
     if (chains, dim, n_data, burnin, post) == (CHAINS, DIM, N_DATA, BURNIN, POST):
         _check_launches("stage1", res["k1_launches_stage1"], STAGE1_ALLOWANCE)
         _check_launches("chees_stage2", res["k1_launches_stage2"])
-    return res, summary, (info["whitened_job"], chain.final_state, gen)
+    x_end = (chain.final_state.position @ chol.T).contiguous()
+    return res, summary, (info["whitened_job"], chain.final_state, gen), x_end
 
 
 def stage1_sensitivity(device="cuda", chains=CHAINS, dim=DIM, n_data=N_DATA, burnin=BURNIN):
@@ -1049,6 +1100,350 @@ def run_gibbs_nested(conj_summary, device="cuda", chains=GIBBS_CHAINS, sweeps=NE
     return res
 
 
+# ------------------------------------------------------------------ the zoo
+def _count_host_reads(fn):
+    """Run ``fn`` under sync debug mode 'warn' and count the warnings: every
+    operation that makes the host wait for the device emits one.  Returns the
+    count and the source lines that made them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    fn()  # once uncounted: the first call of an operation may set up a library handle
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    reads = [w for w in caught if "synchronizing cuda operation" in str(w.message).lower()]
+    sites = sorted({f"{os.path.basename(w.filename)}:{w.lineno}" for w in reads})
+    return len(reads), sites
+
+
+def _profile_device(fn):
+    """``fn`` under torch.profiler: the number of device kernels it launched,
+    their summed time in ms, and the three kernel names that took most of it
+    with their shares."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
+    return len(kernels), busy / 1e3, [[k[:60], round(v / busy, 3)] for k, v in top]
+
+
+def run_zoo_sampler(name, target, sampler, x0, ref_summary, *, burnin, post, thinning=1,
+                    tuner=None, pooled=False, step_size=None, diagnostics=("accept",),
+                    data=None, accept_gate=None, sd_gate=None, probe_steps=2):
+    """One sampler of the zoo through ``MCJob.run_phased`` from the stationary
+    positions ``x0``.  Reports ms per step, K1
+    launches, host reads per step (counted on ``probe_steps`` further steps
+    under sync debug mode 'warn'), device kernels and busy time per step (the
+    same number of steps under torch.profiler), the acceptance, and how far
+    the chains mixed (split-chain rank-R̂, min ESS).  Returns (results, chain, failures):
+
+    * invariance: every posterior mean over the run within ``MEAN_Z_GATE``
+      combined standard errors of ``ref_summary``'s (per-dim mean, sd, ESS in
+      x space: phase 4's), the run's standard error taken across the chains'
+      own means (the chains start from independent stationary draws, so this
+      holds however slowly a chain moves), every posterior sd within
+      ``sd_gate`` of the reference's (default: ``MEAN_Z_GATE`` standard errors
+      of an sd estimated from as many independent draws as there are chains),
+      and rank-R̂ between the ensemble's distributions at the saved times
+      under the gate;
+    * the post-burnin acceptance in ``accept_gate`` (lo, hi).
+
+    With ``data`` (X, y) K1 is held against its plain version on the final
+    positions."""
+    import klara_tpu_torch as kt
+    from klara_tpu_torch.ops import logreg
+    from klara_tpu_torch.samplers import slice_sampler
+
+    chains, dim = x0.shape
+    n_steps = burnin + post
+    job = kt.MCJob(
+        target, sampler, kt.MCRange(n_steps=n_steps, burnin=burnin, thinning=thinning),
+        tuner=tuner, n_chains=chains, monitor=("value",), diagnostics=diagnostics,
+        pooled_tuning=pooled, step_size=step_size,
+    )
+    gen = torch.Generator(device=x0.device).manual_seed(7)
+    logreg.KERNEL_LAUNCHES = 0
+    slice_sampler.HOST_READS = 0
+    chain, timings = job.run_phased(gen, x0)
+    launches, counted_reads = logreg.KERNEL_LAUNCHES, slice_sampler.HOST_READS
+
+    values = chain.value
+    if not bool(torch.isfinite(values).all()):
+        raise RuntimeError(f"{name}: non-finite draws in the trace")
+    mean, sd, ess = _x_summary(values, None, _chunk(values.shape[0], dim))
+    se2 = values.to(torch.float32).mean(0).to(torch.float64).var(0) / chains
+    accept = chain["accept"].to(torch.float32)
+    end = chain.final_state
+    state = [end]
+
+    def probe():
+        for _ in range(probe_steps):
+            state[0], _ = job.sampler.step(state[0], job.target, gen)
+
+    m0, sd0, ess0 = ref_summary
+    n_reads, read_sites = _count_host_reads(probe)
+    n_kernels, busy_ms, top_kernels = _profile_device(probe)
+    ms_per_step = 1e3 * timings["sampling_seconds"] / post
+    res = {
+        "chains": chains,
+        "burnin": burnin,
+        "post": post,
+        "thinning": thinning,
+        "warmup_seconds": timings["warmup_seconds"],
+        "sampling_seconds": timings["sampling_seconds"],
+        "ms_per_step": ms_per_step,
+        "k1_launches": launches,
+        "host_reads_per_step": n_reads / probe_steps,
+        "host_read_sites": read_sites,
+        # probe_steps further steps under torch.profiler; the idle share sets their
+        # device time against the unprofiled sampling steps' wall time
+        "device_kernels_per_step": n_kernels / probe_steps,
+        "device_busy_ms_per_step": busy_ms / probe_steps,
+        "idle_share_est": 1.0 - busy_ms / probe_steps / ms_per_step,
+        "device_top_kernels": top_kernels,
+        "acceptance": float(accept.mean()),
+        "acceptance_last_quarter": float(accept[-max(accept.shape[0] // 4, 1):].mean()),
+        "max_mean_z_vs_chees": float(
+            ((mean - m0).abs() / torch.sqrt(se2 + sd0**2 / ess0)).max()),
+        "rhat_over_time_max": _rhat_max(values, None, over_time=True),
+        "sd_ratio_to_chees_range": [float((sd / sd0).min()), float((sd / sd0).max())],
+        # how far the chains mixed: not gated
+        "rhat_split_chain_max": _rhat_max(values, None),
+        "min_ess": float(ess.min()),
+        "ess_per_sec": float(ess.min()) / timings["sampling_seconds"],
+        "max_mean_z_ess_based": float(
+            ((mean - m0).abs() / torch.sqrt(sd**2 / ess + sd0**2 / ess0)).max()),
+    }
+    if isinstance(sampler, kt.SliceSampler):
+        res["counted_host_reads_per_sweep"] = counted_reads / n_steps
+    if hasattr(end, "tune") and not sampler.self_tuning:
+        res["step_final"] = float(end.tune.step.mean())
+    if data is not None:
+        res["k1_max_abs_err_on_path"] = _k1_error(end.position.contiguous(), *data)
+
+    failures = []
+    if res["rhat_over_time_max"] > RHAT_GATE:
+        failures.append(f"zoo {name}: rank-R-hat over time {res['rhat_over_time_max']} > "
+                        f"{RHAT_GATE}")
+    if res["max_mean_z_vs_chees"] > MEAN_Z_GATE:
+        failures.append(f"zoo {name}: posterior means differ from chees_precond's by "
+                        f"{res['max_mean_z_vs_chees']} se")
+    lo, hi = res["sd_ratio_to_chees_range"]
+    if sd_gate is None:
+        sd_gate = MEAN_Z_GATE / math.sqrt(2.0 * chains)
+    res["sd_ratio_gate"] = sd_gate
+    if lo < 1.0 - sd_gate or hi > 1.0 + sd_gate:
+        failures.append(f"zoo {name}: posterior sds are {lo}..{hi} of chees_precond's")
+    if accept_gate is not None and not accept_gate[0] <= res["acceptance"] <= accept_gate[1]:
+        failures.append(f"zoo {name}: acceptance {res['acceptance']} outside {accept_gate}")
+    return res, chain, failures
+
+
+def run_zoo_logreg(x_end, ref_summary, device="cuda", chains=ZOO_CHAINS, dim=DIM,
+                   n_data=N_DATA, steps=None):
+    """The sampler zoo on the bench logreg target, from phase 4's final
+    positions in x space (``x_end``; stationary draws) against phase 4's
+    posterior (``ref_summary``).  ``steps`` overrides ``ZOO_STEPS``.  Every
+    sampler runs and prints; the failures of all are raised together at
+    the end.  Returns {name: results}."""
+    import klara_tpu_torch as kt
+    from klara_tpu_torch.models.examples import synthetic_logistic_regression
+
+    steps = {**ZOO_STEPS, **(steps or {})}
+    target, X, y = synthetic_logistic_regression(dim=dim, n_data=n_data, device=device)
+    x0 = x_end[:chains].contiguous()
+    cov = torch.cov(x_end.T)
+    var = torch.diagonal(cov)
+    sd = torch.sqrt(var)
+    # conditional sd of each coordinate given the others, from the ensemble's precision
+    cond_sd = torch.rsqrt(torch.diagonal(torch.linalg.inv(cov)))
+    eig = torch.linalg.eigvalsh(cov)
+    print(f"# zoo start: ensemble sd {float(sd.min()):.4f}..{float(sd.max()):.4f}, conditional "
+          f"sd {float(cond_sd.min()):.4f}..{float(cond_sd.max()):.4f}, covariance condition "
+          f"number {float(eig[-1] / eig[0]):.1f}", flush=True)
+    out, failures = {}, []
+
+    def run(name, sampler, x0=x0, **kw):
+        cfg = {k: v for k, v in steps[name].items() if k != "chains"}
+        res, chain, failed = run_zoo_sampler(name, target, sampler, x0, ref_summary,
+                                             **cfg, **kw)
+        out[name] = res
+        failures.extend(failed)
+        return res, chain
+
+    def show(name):
+        print(f"# zoo {name} {out[name]['chains']}x{dim}x{n_data}: {json.dumps(out[name])}",
+              flush=True)
+
+    # MALA: one K1 launch a step, pooled dual averaging on the 0/1 acceptance
+    for name, at in (("mala", x0), ("mala_16384", x_end)):
+        b = steps[name]["burnin"]
+        res, chain = run(name, kt.MALA(), x0=at, tuner=kt.DualAveragingTuner(MALA_RATE, b),
+                         pooled=True, step_size=0.005, data=(X, y),
+                         accept_gate=(MALA_RATE - 0.05, MALA_RATE + 0.05))
+        res["k1_launches_expected"] = b + steps[name]["post"] + 1
+        show(name)
+        if res["k1_launches"] != res["k1_launches_expected"]:
+            failures.append(f"zoo {name}: {res['k1_launches']} K1 launches, expected one a "
+                            f"step and one at init: {res['k1_launches_expected']}")
+        del chain
+
+    run("ram", kt.RAM(S0=0.1), accept_gate=(0.234 - 0.05, 0.234 + 0.05))
+    show("ram")
+    # AM counts C0 as the covariance of its first t0 − 2 draws, so t0 = burnin keeps the
+    # ensemble's scales while the chain's own history is short; until then it proposes
+    # from the isotropic component, scaled like the core
+    core = 2.38**2 / dim
+    run("am", kt.AM(C0=var, corescale=core, minorscale=core * float(var.mean()),
+                    t0=steps["am"]["burnin"]), accept_gate=(0.05, 1.0), sd_gate=AM_SD_GATE)
+    show("am")
+
+    # AMWG: logσ moves by δ = 0.01 per 50 sweeps, 0.2 per 1000 sweeps, so it starts
+    # where the Roberts-Rosenthal rule is heading: 2.38 conditional sds
+    res, chain = run("amwg", kt.AMWG(period=50), step_size=2.38 * cond_sd,
+                     diagnostics=("accept", "accept_vec"))
+    vec = chain["accept_vec"]
+    by_coord = vec[-max(vec.shape[0] // 4, 1):].mean((0, 1))
+    res["coordinate_rate_mean_last_quarter"] = float(by_coord.mean())
+    res["coordinate_rate_range_last_quarter"] = [float(by_coord.min()), float(by_coord.max())]
+    res["logsigma_shift_mean"] = float(
+        (chain.final_state.tune.step - torch.log(2.38 * cond_sd)).mean())
+    show("amwg")
+    if abs(res["coordinate_rate_mean_last_quarter"] - 0.44) > 0.1:
+        failures.append(f"zoo amwg: mean per-coordinate rate "
+                        f"{res['coordinate_rate_mean_last_quarter']} is not 0.44 ± 0.1")
+    del chain, vec
+
+    run("slice", kt.SliceSampler(widths=sd), accept_gate=(0.99, 1.0))
+    show("slice")
+
+    # SMMALA: value and gradient through K1, the tensor through autograd's Hessian
+    b = steps["smmala"]["burnin"]
+    n_sm = steps["smmala"].get("chains", chains)
+    res, chain = run("smmala", kt.SMMALA(driftstep=0.005), x0=x_end[:n_sm].contiguous(),
+                     tuner=kt.DualAveragingTuner(MALA_RATE, b), pooled=True, data=(X, y))
+    show("smmala")
+    if res["k1_launches"] <= 0:
+        failures.append("zoo smmala launched no K1 kernel")
+    del chain
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return out
+
+
+def run_zoo_ars(device="cuda", chains=ZOO_CHAINS, dim=DIM, steps=ARS_STEPS):
+    """ARS on the 100-dim normal with the envelope N(0, 2²·I) (scale 0: logπ −
+    logq = −⅜‖x‖² ≤ 0 everywhere).  At this width every valid envelope
+    accepts a jump to x' with probability e^{−⅜‖x'‖²}, so the chains stay
+    near the start; the run checks what holds at any width: the accepted
+    share equals the mean acceptance probability, and the carried
+    log-target is the target's at the final positions."""
+    import klara_tpu_torch as kt
+    from klara_tpu_torch.models.examples import normal_target
+    from klara_tpu_torch.ops import logreg
+
+    target = normal_target(dim)
+    ars = kt.ARS(logproposal=lambda x: -0.5 * torch.square(x / 2.0).sum(-1),
+                 proposalscale=0.0, jumpscale=0.05)
+    job = kt.MCJob(target, ars, kt.MCRange(n_steps=steps, burnin=0), n_chains=chains,
+                   monitor=("value", "logtarget"), diagnostics=("accept", "accept_stat", "weight"))
+    gen = torch.Generator(device=device).manual_seed(7)
+    logreg.KERNEL_LAUNCHES = 0
+    chain, timings = job.run_phased(gen, torch.zeros(chains, dim, device=device))
+    accept = chain["accept"].to(torch.float64)
+    stat = chain["accept_stat"].to(torch.float64)
+    n = accept.numel()
+    se = float(torch.sqrt(stat.mean() * (1 - stat.mean()) / n))
+    end = chain.final_state
+    res = {
+        "chains": chains, "steps": steps,
+        "ms_per_step": 1e3 * timings["sampling_seconds"] / steps,
+        "k1_launches": logreg.KERNEL_LAUNCHES,
+        "acceptance": float(accept.mean()),
+        "mean_accept_stat": float(stat.mean()),
+        "accept_minus_stat_in_se": float((accept.mean() - stat.mean()).abs()) / se,
+        "acceptance_first_10_steps": float(accept[:10].mean()),
+        "acceptance_last_10_steps": float(accept[-10:].mean()),
+        "mean_sq_norm_final": float(torch.square(end.position).sum(-1).mean()),
+        "logtarget_max_abs_err": float(
+            (end.logtarget - target.logdensity(end.position)).abs().max()),
+    }
+    print(f"# zoo ars {chains}x{dim} normal: {json.dumps(res)}", flush=True)
+    if not bool(torch.isfinite(chain.value).all()):
+        raise RuntimeError("zoo ars: non-finite draws")
+    if tuple(chain.value.shape) != (steps, chains, dim):
+        raise RuntimeError(f"zoo ars: trace shape {tuple(chain.value.shape)}")
+    if res["accept_minus_stat_in_se"] > MEAN_Z_GATE:
+        raise RuntimeError(f"zoo ars: accepted share {res['acceptance']} is not the mean "
+                           f"acceptance probability {res['mean_accept_stat']}")
+    if res["logtarget_max_abs_err"] > 1e-3 or not 0.0 < res["acceptance"] < 1.0:
+        raise RuntimeError(f"zoo ars: {res}")
+    return res
+
+
+MONITOR_SLOTS = (
+    "value", "logtarget", "loglikelihood", "logprior",
+    "gradlogtarget", "gradloglikelihood", "gradlogprior",
+    "tensorlogtarget", "tensorloglikelihood", "tensorlogprior",
+    "dtensorlogtarget", "dtensorloglikelihood", "dtensorlogprior",
+)
+
+
+def check_monitor_slots(device="cuda", chains=64, draws=50):
+    """All 13 monitored slots on the swiss target (D=4) under MALA: each is
+    recorded with its shape, finite, and the target's slots are the sums of
+    the likelihood's and the prior's."""
+    import klara_tpu_torch as kt
+    from klara_tpu_torch.models.examples import swiss_logistic_regression
+    from klara_tpu_torch.ops import logreg
+
+    target, _, _ = swiss_logistic_regression(device=device)
+    d = target.dim
+    job = kt.MCJob(target, kt.MALA(driftstep=0.05), kt.MCRange(n_steps=draws + 10, burnin=10),
+                   n_chains=chains, monitor=MONITOR_SLOTS)
+    gen = torch.Generator(device=device).manual_seed(3)
+    logreg.KERNEL_LAUNCHES = 0
+    chain = job.run(gen, 0.1 * torch.randn(chains, d, generator=gen, device=device))
+    _sync(device)
+    for f in MONITOR_SLOTS:
+        rank = (0 if f.startswith("log") else 1 if f.startswith("grad") or f == "value"
+                else 2 if f.startswith("tensor") else 3)
+        want = (draws, chains) + (d,) * rank
+        if tuple(chain[f].shape) != want or not bool(torch.isfinite(chain[f]).all()):
+            raise RuntimeError(f"monitor slot {f}: shape {tuple(chain[f].shape)}, want {want}, "
+                               "or non-finite")
+        if chain[f].device.type != torch.device(device).type:
+            raise RuntimeError(f"monitor slot {f} is on {chain[f].device}, not on {device}")
+    errs = {}
+    for pre, tol in (("log", 1e-3), ("gradlog", 1e-3), ("tensorlog", 1e-4), ("dtensorlog", 1e-4)):
+        whole, parts = chain[pre + "target"], chain[pre + "likelihood"] + chain[pre + "prior"]
+        errs[pre + "target"] = float((whole - parts).abs().max())
+        torch.testing.assert_close(whole, parts, rtol=1e-4, atol=tol)
+    res = {"chains": chains, "draws": draws, "k1_launches": logreg.KERNEL_LAUNCHES,
+           "acceptance": float(chain["accept"].to(torch.float32).mean()),
+           "max_abs_err_target_minus_parts": errs}
+    print(f"# 13 monitor slots on swiss {chains}x{d}: {json.dumps(res)}", flush=True)
+    if res["k1_launches"] != draws + 10 + 1:
+        raise RuntimeError(f"monitor check: {res['k1_launches']} K1 launches, expected "
+                           f"{draws + 10 + 1}")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1076,10 +1471,16 @@ def main():
         print(card)
         return
     profile_dir = sys.argv[sys.argv.index("--profile") + 1] if "--profile" in sys.argv else None
-    chees, chees_summary, chees_end = run_main_path()
+    chees, chees_summary, chees_end, x_end = run_main_path()
     if profile_dir:
         profile_chees(*chees_end, profile_dir)
     del chees_end
+    if "--zoo-only" in sys.argv:
+        run_zoo_logreg(x_end, chees_summary)
+        run_zoo_ars()
+        check_monitor_slots()
+        print(card)
+        return
     nuts, wjob, state, chol, gen, data = run_nuts_precond(chees_summary)
     check_no_host_read(wjob, state, gen)
     if profile_dir:
@@ -1091,18 +1492,31 @@ def main():
     if profile_dir:
         profile_gibbs(gjob, gchains, gv0, ggen, profile_dir)
     nested = run_gibbs_nested(gibbs["by_key"])
+    zoo = run_zoo_logreg(x_end, chees_summary)
+    del x_end
+    ars = run_zoo_ars()
+    slots = check_monitor_slots()
 
     by_path = {"chees_precond": chees["k1_launches"], "nuts_precond": nuts["k1_launches"],
-               "nuts_looped": looped["k1_launches"], "nuts": raw["k1_launches"]}
+               "nuts_looped": looped["k1_launches"], "nuts": raw["k1_launches"],
+               "zoo_mala": zoo["mala"]["k1_launches"],
+               "zoo_mala_16384": zoo["mala_16384"]["k1_launches"],
+               "zoo_smmala": zoo["smmala"]["k1_launches"],
+               "monitor_slots": slots["k1_launches"]}
     for path, n in by_path.items():
         if n <= 0:
             raise RuntimeError(f"the {path} path launched no K1 kernel")
-    # the Gibbs sweep runs no kernel of the port, as the JAX sweep runs no Pallas kernel
-    by_path.update(gibbs_rats=gibbs["k1_launches"], gibbs_rats_nested=nested["k1_launches"])
+    # the Gibbs sweep runs no kernel of the port, as the JAX sweep runs no Pallas kernel;
+    # RAM, AM, AMWG, slice and ARS evaluate logdensity_fn alone, as in the JAX package
+    by_path.update(gibbs_rats=gibbs["k1_launches"], gibbs_rats_nested=nested["k1_launches"],
+                   **{f"zoo_{k}": zoo[k]["k1_launches"] for k in ("ram", "am", "amwg", "slice")},
+                   zoo_ars=ars["k1_launches"])
     err_by_path = {"chees_precond": chees["k1_max_abs_err_on_path"],
                    "nuts_precond": nuts["k1_max_abs_err_on_path"],
                    "nuts_looped": looped["k1_max_abs_err_on_path"],
-                   "nuts": raw["k1_max_abs_err_on_path"]}
+                   "nuts": raw["k1_max_abs_err_on_path"],
+                   **{f"zoo_{k}": zoo[k]["k1_max_abs_err_on_path"]
+                      for k in ("mala", "mala_16384", "smmala")}}
     # 3 TF32 passes x 2 products x 2*C*N*D operations over 495 TFLOP/s: 0.041 ms at the
     # main shape; the 13.6 MB of compulsory traffic would take 0.004 ms
     bound_ms, bound_by = k1_bound_ms(CHAINS, DIM, N_DATA)

@@ -22,8 +22,25 @@ from klara_tpu_torch.models import (
     Transformation,
     likelihood_model,
 )
-from klara_tpu_torch.samplers import HMC, MH, NUTS, NUTSState
-from klara_tpu_torch.tuners import AcceptanceRateTuner, DualAveragingTuner, VanillaTuner
+from klara_tpu_torch.samplers import (
+    AM,
+    AMWG,
+    ARS,
+    HMC,
+    MALA,
+    MH,
+    NUTS,
+    RAM,
+    SMMALA,
+    NUTSState,
+    SliceSampler,
+)
+from klara_tpu_torch.tuners import (
+    AcceptanceRateTuner,
+    DualAveragingTuner,
+    RobertsRosenthalTuner,
+    VanillaTuner,
+)
 from klara_tpu_torch import distributions, stats
 
 __version__ = "0.1.0"
@@ -48,12 +65,20 @@ __all__ = [
     "Transformation",
     "likelihood_model",
     "MH",
+    "AM",
+    "RAM",
+    "AMWG",
+    "ARS",
+    "MALA",
+    "SMMALA",
+    "SliceSampler",
     "HMC",
     "NUTS",
     "NUTSState",
     "VanillaTuner",
     "AcceptanceRateTuner",
     "DualAveragingTuner",
+    "RobertsRosenthalTuner",
     "distributions",
     "stats",
 ]

@@ -16,9 +16,20 @@ from klara_tpu_torch.core.device import resolve_device
 from klara_tpu_torch.jobs.chain import Chain
 from klara_tpu_torch.jobs.gibbs import GibbsChains
 from klara_tpu_torch.models.examples import logistic_regression_target
-from klara_tpu_torch.samplers.hmc import HMCState
-from klara_tpu_torch.samplers.nuts import NUTSState
-from klara_tpu_torch.tuners.tuners import DualAveragingExtra, TuneState
+from klara_tpu_torch import samplers as _samplers
+from klara_tpu_torch.tuners.tuners import (
+    DualAveragingExtra,
+    RobertsRosenthalExtra,
+    TuneState,
+)
+
+_STATE_TYPES = {
+    cls.__name__: cls
+    for cls in (
+        TuneState,
+        *(getattr(_samplers, n) for n in _samplers.__all__ if n.endswith("State")),
+    )
+}
 
 
 def _t(a, device=None):
@@ -36,42 +47,47 @@ def target_arrays(X, y, prior_var: float = 100.0, device=None):
     )
 
 
+def _extra_from_numpy(extra, device):
+    for cls in (DualAveragingExtra, RobertsRosenthalExtra):
+        if all(hasattr(extra, f) for f in cls._fields):
+            return cls(*(_t(getattr(extra, f), device) for f in cls._fields))
+    if len(extra) == 0:
+        return ()
+    raise ValueError(f"no converter for tuner extra {type(extra).__name__}")
+
+
+def state_from_numpy(state, device=None, cls=None):
+    """A sampler or tuner state of the JAX package, chains-batched and with
+    numpy leaves, as the port's NamedTuple ``cls`` (default: the port's type
+    of the same name: ``HMCState``, ``NUTSState``, ``MHState``,
+    ``MALAState``, ``AMState``, ``RAMState``, ``AMWGState``, ``SliceState``,
+    ``ARSState``, ``SMMALAState``, ``TuneState``).  Fields are read by name."""
+    if cls is None:
+        cls = _STATE_TYPES.get(type(state).__name__)
+        if cls is None:
+            raise ValueError(f"no converter for {type(state).__name__}")
+    out = []
+    for f in cls._fields:
+        v = getattr(state, f)
+        if f == "tune":
+            out.append(state_from_numpy(v, device, TuneState))
+        elif f == "extra":
+            out.append(_extra_from_numpy(v, device))
+        else:
+            out.append(_t(v, device))
+    return cls(*out)
+
+
 def tune_state_from_numpy(tune, device=None) -> TuneState:
-    extra = tune.extra
-    if hasattr(extra, "eps_bar"):
-        extra = DualAveragingExtra(*(_t(getattr(extra, f), device) for f in DualAveragingExtra._fields))
-    elif len(extra) == 0:
-        extra = ()
-    else:
-        raise ValueError(f"no converter for tuner extra {type(extra).__name__}")
-    return TuneState(
-        *(_t(getattr(tune, f), device) for f in TuneState._fields[:-1]), extra
-    )
+    return state_from_numpy(tune, device, TuneState)
 
 
-def hmc_state_from_numpy(state, device=None) -> HMCState:
-    """A chains-batched JAX ``HMCState`` with numpy leaves -> the port's."""
-    return HMCState(
-        position=_t(state.position, device),
-        logtarget=_t(state.logtarget, device),
-        gradlogtarget=_t(state.gradlogtarget, device),
-        inv_mass=_t(state.inv_mass, device),
-        tune=tune_state_from_numpy(state.tune, device),
-        log_traj=_t(state.log_traj, device),
-        traj_m=_t(state.traj_m, device),
-        traj_v=_t(state.traj_v, device),
-    )
+def hmc_state_from_numpy(state, device=None):
+    return state_from_numpy(state, device, _samplers.HMCState)
 
 
-def nuts_state_from_numpy(state, device=None) -> NUTSState:
-    """A chains-batched JAX ``NUTSState`` with numpy leaves -> the port's."""
-    return NUTSState(
-        position=_t(state.position, device),
-        logtarget=_t(state.logtarget, device),
-        gradlogtarget=_t(state.gradlogtarget, device),
-        inv_mass=_t(state.inv_mass, device),
-        tune=tune_state_from_numpy(state.tune, device),
-    )
+def nuts_state_from_numpy(state, device=None):
+    return state_from_numpy(state, device, _samplers.NUTSState)
 
 
 def chain_from_numpy(samples, diagnostics=None, device=None) -> Chain:

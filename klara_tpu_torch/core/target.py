@@ -10,7 +10,12 @@ batched value+grad (the logreg kernel K1) plugs in directly as
 Missing derivatives come from autograd: ``torch.autograd.grad`` of the batch
 sum for ``ad_mode='reverse'`` (rows are independent, so the sum's gradient
 is each row's gradient), ``torch.func.jacfwd`` under ``torch.func.vmap`` for
-``'forward'``.  The Hessian, tensor and dtensor accessors are not ported yet.
+``'forward'``.  The "tensor" is the negative Hessian of a log-density (the
+observed Fisher information, SMMALA's metric), (C, D, D), and the "dtensor"
+its derivative, (C, D, D, D).  Both come from ``torch.func`` transforms of the
+per-chain function ``x -> fn(x[None])[0]`` under ``torch.func.vmap``, so they
+go through ``logdensity_fn`` (a function of plain torch ops), never through
+``value_and_grad_fn``, which may launch a kernel that cannot be traced.
 """
 
 from __future__ import annotations
@@ -31,11 +36,18 @@ def _reverse_value_and_grad(fn, x):
     return value.detach(), grad
 
 
-def _forward_grad(fn, x):
-    def one(xi):
-        return fn(xi.unsqueeze(0)).squeeze(0)
+def _one(fn):
+    """The per-chain form of a batched function."""
+    return lambda xi: fn(xi.unsqueeze(0)).squeeze(0)
 
-    return torch.func.vmap(torch.func.jacfwd(one))(x)
+
+def _forward_grad(fn, x):
+    return torch.func.vmap(torch.func.jacfwd(_one(fn)))(x)
+
+
+def _neg_hessian_one(fn):
+    hess = torch.func.hessian(_one(fn))
+    return lambda xi: -hess(xi)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +65,9 @@ class Target:
     prior: Optional[Any] = None
     grad_fn: Optional[Callable] = None
     value_and_grad_fn: Optional[Callable] = None
+    # analytic overrides of the metric tensor (C, D, D) and its derivative
+    tensor_fn: Optional[Callable] = None
+    dtensor_fn: Optional[Callable] = None
     ad_mode: str = "reverse"
     name: str = "target"
 
@@ -101,14 +116,17 @@ class Target:
         raise ValueError("target has no logprior decomposition")
 
     def sample_prior(self, generator, n_chains: int):
-        """Draw (n_chains, dim) initial positions from ``prior``."""
+        """Draw initial positions from ``prior``: (n_chains, dim) iid draws
+        of a scalar prior, (n_chains, *event) draws of a multivariate one,
+        and (n_chains,) per-chain scalars from a scalar prior when ``dim`` is
+        unset (a univariate target; the job lifts them)."""
         if self.prior is None:
             raise ValueError(
                 "target has no `prior` to draw initial values from; pass x0 "
                 "explicitly or set Target(prior=...)"
             )
-        if self.dim is None:
-            raise ValueError("sample_prior needs Target(dim=...)")
+        if getattr(self.prior, "event_dims", 0) > 0 or self.dim is None:
+            return self.prior.sample(generator, (n_chains,))
         return self.prior.sample(generator, (n_chains, self.dim))
 
     def grad(self, x):
@@ -128,6 +146,80 @@ class Target:
         if self.ad_mode == "forward":
             return self.logdensity_fn(x), _forward_grad(self.logdensity_fn, x)
         return _reverse_value_and_grad(self.logdensity_fn, x)
+
+    # -- likelihood / prior derivative accessors: with ``grad``, ``tensor``
+    # and ``dtensor`` they back the 13 monitored slots
+    # {log, gradlog, tensorlog, dtensorlog} × {likelihood, prior, target} + value
+
+    def _loglikelihood_callable(self) -> LogDensityFn:
+        if self.loglikelihood_fn is None:
+            raise ValueError("target has no loglikelihood decomposition")
+        return self.loglikelihood_fn
+
+    def _logprior_callable(self) -> LogDensityFn:
+        if self.logprior_fn is not None:
+            return self.logprior_fn
+        if self.prior is not None:
+            return lambda x: self.prior.logpdf(x).sum(-1)
+        raise ValueError("target has no logprior decomposition")
+
+    def _ad_grad(self, fn, x):
+        if self.ad_mode == "forward":
+            return _forward_grad(fn, x)
+        return _reverse_value_and_grad(fn, x)[1]
+
+    def grad_loglikelihood(self, x):
+        """∇ log L(x), (C, D)."""
+        return self._ad_grad(self._loglikelihood_callable(), x)
+
+    def grad_logprior(self, x):
+        """∇ log p(x), (C, D)."""
+        return self._ad_grad(self._logprior_callable(), x)
+
+    def _tensor_one(self):
+        if self.tensor_fn is not None:
+            return _one(self.tensor_fn)
+        return _neg_hessian_one(self.logdensity_fn)
+
+    def tensor(self, x):
+        """Metric tensor G(x) = −Hessian of the log-target, (C, D, D)."""
+        if self.tensor_fn is not None:
+            return self.tensor_fn(x)
+        return torch.func.vmap(_neg_hessian_one(self.logdensity_fn))(x)
+
+    def tensor_loglikelihood(self, x):
+        """−Hessian of log L, (C, D, D)."""
+        return torch.func.vmap(_neg_hessian_one(self._loglikelihood_callable()))(x)
+
+    def tensor_logprior(self, x):
+        """−Hessian of log p, (C, D, D)."""
+        return torch.func.vmap(_neg_hessian_one(self._logprior_callable()))(x)
+
+    def dtensor(self, x):
+        """Derivative of the metric tensor, (C, D, D, D): entry [c, i, j, k]
+        is ∂G_ij/∂x_k."""
+        if self.dtensor_fn is not None:
+            return self.dtensor_fn(x)
+        return torch.func.vmap(torch.func.jacfwd(self._tensor_one()))(x)
+
+    def dtensor_loglikelihood(self, x):
+        return torch.func.vmap(
+            torch.func.jacfwd(_neg_hessian_one(self._loglikelihood_callable()))
+        )(x)
+
+    def dtensor_logprior(self, x):
+        return torch.func.vmap(
+            torch.func.jacfwd(_neg_hessian_one(self._logprior_callable()))
+        )(x)
+
+    def logdensity_grad_tensor(self, x):
+        """Value (C,), gradient (C, D) and tensor (C, D, D): value and
+        gradient from ``logdensity_and_grad`` (the fused kernel where the
+        target has one), the tensor from ``tensor``."""
+        if self.tensor_fn is not None and self.grad_fn is not None:
+            return self.logdensity_fn(x), self.grad_fn(x), self.tensor_fn(x)
+        value, grad = self.logdensity_and_grad(x)
+        return value, grad, self.tensor(x)
 
     def with_name(self, name: str) -> "Target":
         return dataclasses.replace(self, name=name)
@@ -177,6 +269,12 @@ def whiten_target(target: Target, chol) -> Target:
         if target.logprior_fn is not None
         else None
     )
+    # the analytic tensor re-expressed in y: H_y = Lᵀ H_x L
+    tensor = (
+        (lambda y: chol_t @ target.tensor_fn(to_x(y)) @ chol)
+        if target.tensor_fn is not None
+        else None
+    )
     prior = _WhitenedPrior(target.prior, chol) if target.prior is not None else None
     return Target(
         logdensity_fn=logdensity_fn,
@@ -185,6 +283,7 @@ def whiten_target(target: Target, chol) -> Target:
         logprior_fn=logprior,
         prior=prior,
         value_and_grad_fn=value_and_grad_fn,
+        tensor_fn=tensor,
         ad_mode=target.ad_mode,
         name=f"{target.name}_whitened",
     )
@@ -197,6 +296,7 @@ class _WhitenedPrior:
     def __init__(self, base, chol):
         self.base = base
         self.chol = chol
+        self.event_dims = getattr(base, "event_dims", 0)
 
     def sample(self, generator, shape):
         x = torch.as_tensor(self.base.sample(generator, shape), dtype=self.chol.dtype)

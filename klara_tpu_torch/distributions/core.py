@@ -280,6 +280,23 @@ class Beta(Distribution):
         return _tensor(self.a / (self.a + self.b))
 
 
+def truncated_standard_normal(a, b, noise):
+    """z ~ N(0, 1) truncated to [a, b] from ``noise`` ~ U(0, 1), by inverting
+    the CDF in float64 (the result is float64) on the side of the mode nearer
+    the interval, where Φ keeps its precision; an interval past Φ's float64
+    range returns its finite end."""
+    a, b = a.to(torch.float64), b.to(torch.float64)
+    flip = a > 0  # sample −z on [−b, −a]: Φ is exact near 0, not near 1
+    lo, hi = torch.where(flip, -b, a), torch.where(flip, -a, b)
+    plo, phi = _ndtr(lo), _ndtr(hi)
+    p = plo + noise.to(torch.float64) * (phi - plo)
+    tiny = torch.finfo(torch.float64).tiny
+    z = torch.special.ndtri(p.clamp(tiny, 1.0 - 2.0**-53))
+    z = torch.where(flip, -z, z)
+    z = torch.minimum(torch.maximum(z, a), b)
+    return torch.where(torch.isfinite(z), z, torch.where(torch.isfinite(a), a, b))
+
+
 @_dist
 class TruncatedNormal(Distribution):
     """Normal(loc, scale) truncated to [low, high].
@@ -314,18 +331,8 @@ class TruncatedNormal(Distribution):
         shape = _draw_shape(shape, _shape(self.loc))
         if noise is None:
             noise = torch.rand(shape, **_kw(generator, dt))
-        a, b = (torch.as_tensor(v, device=generator.device).to(torch.float64)
-                for v in self._alpha_beta())
-        flip = a > 0  # sample −z on [−b, −a]: Φ is exact near 0, not near 1
-        lo, hi = torch.where(flip, -b, a), torch.where(flip, -a, b)
-        plo, phi = _ndtr(lo), _ndtr(hi)
-        p = plo + noise.to(torch.float64) * (phi - plo)
-        tiny = torch.finfo(torch.float64).tiny
-        z = torch.special.ndtri(p.clamp(tiny, 1.0 - 2.0**-53))
-        z = torch.where(flip, -z, z)
-        z = torch.minimum(torch.maximum(z, a), b)
-        z = torch.where(torch.isfinite(z), z, torch.where(torch.isfinite(a), a, b))
-        return (self.loc + self.scale * z).to(dt)
+        a, b = (torch.as_tensor(v, device=noise.device) for v in self._alpha_beta())
+        return (self.loc + self.scale * truncated_standard_normal(a, b, noise)).to(dt)
 
     def mean(self):
         a, b = (_tensor(v) for v in self._alpha_beta())

@@ -12,8 +12,12 @@ length) are module-level functions of the post-kernel states, the step's
 infos, the step index and the shared jitter fraction, applied in that order
 by ``MCJob.adapt``.
 
-Not ported yet: mesh sharding, CSV streaming, ``resume``, ``verbose``
-progress, the scalar-target lift and the tensor-valued monitors.
+A univariate target (a (C,) position per step) is lifted to dim 1, so the
+vector-only samplers (AM, RAM, AMWG, slice, SMMALA) run it too, and the
+traces are squeezed back to scalars on output.
+
+Not ported yet: mesh sharding, CSV streaming, ``resume`` and ``verbose``
+progress.
 """
 
 from __future__ import annotations
@@ -27,10 +31,27 @@ import torch
 from klara_tpu_torch.core.device import resolve_device
 from klara_tpu_torch.core.target import Target, whiten_target
 from klara_tpu_torch.jobs.chain import Chain
+from klara_tpu_torch.jobs.gibbs import _as_tensor
 from klara_tpu_torch.jobs.range import MCRange
 from klara_tpu_torch.samplers.base import Info, Sampler
 from klara_tpu_torch.samplers.hmc import jitter_fraction
 from klara_tpu_torch.tuners.tuners import DualAveragingTuner, Tuner
+
+
+# the 13 monitored slots: {log, gradlog, tensorlog, dtensorlog} ×
+# {likelihood, prior, target} + value; these read a Target accessor
+_TARGET_FIELDS = {
+    "loglikelihood": "loglikelihood",
+    "logprior": "logprior",
+    "gradloglikelihood": "grad_loglikelihood",
+    "gradlogprior": "grad_logprior",
+    "tensorlogtarget": "tensor",
+    "tensorloglikelihood": "tensor_loglikelihood",
+    "tensorlogprior": "tensor_logprior",
+    "dtensorlogtarget": "dtensor",
+    "dtensorloglikelihood": "dtensor_loglikelihood",
+    "dtensorlogprior": "dtensor_logprior",
+}
 
 
 def _field_value(name: str, state, info: Info, target: Target):
@@ -38,15 +59,13 @@ def _field_value(name: str, state, info: Info, target: Target):
         return state.position
     if name == "logtarget":
         return info.logtarget
-    if name == "loglikelihood":
-        return target.loglikelihood(state.position)
-    if name == "logprior":
-        return target.logprior(state.position)
     if name == "gradlogtarget":
         if hasattr(state, "gradlogtarget"):
             return state.gradlogtarget
         return target.grad(state.position)
-    raise ValueError(f"unknown or not yet ported monitored field {name!r}")
+    if name in _TARGET_FIELDS:
+        return getattr(target, _TARGET_FIELDS[name])(state.position)
+    raise ValueError(f"unknown monitored field {name!r}")
 
 
 def _diag_value(name: str, state, info: Info):
@@ -190,27 +209,116 @@ class MCJob:
             dt = getattr(torch, str(self.trace_dtype), None)
             if not isinstance(dt, torch.dtype):
                 raise ValueError(f"unknown trace_dtype {self.trace_dtype!r}")
+        self._lifted = False
+
+    # ------------------------------------------------------------- from model
+    @classmethod
+    def from_model(cls, model, sampler, mcrange, v0: dict, pkey: Optional[str] = None,
+                   **kwargs):
+        """A single-parameter job from a model graph and initial values: the
+        target is parameter ``pkey``'s conditional log-density given the
+        other (fixed) values of ``v0``.  Returns (job, x0)."""
+        params = model.parameters
+        if pkey is None:
+            if len(params) != 1:
+                raise ValueError(
+                    "model has multiple parameters; pass pkey to choose one "
+                    "(or use GibbsJob)"
+                )
+            pkey = params[0].key
+        param = model[pkey]
+        device = resolve_device(kwargs.get("device"), v0.values())
+        values = {k: _as_tensor(v, device).to(device) for k, v in v0.items()}
+        consts = {k: v for k, v in values.items() if k != pkey}
+        target = Target(
+            logdensity_fn=lambda x: param.conditional_logdensity(x, consts), name=pkey
+        )
+        return cls(target, sampler, mcrange, **kwargs), values[pkey]
 
     # ------------------------------------------------------------------ init
     def _prepare_x0(self, generator, x0):
-        if x0 is None:  # the prior draws on its generator's device
+        """The initial positions as (n_chains, ...): drawn from the prior when
+        ``x0`` is None; one position is shared by every chain.  Scalar
+        positions (a 0-d ``x0``, per-chain scalars (n_chains,) with
+        ``target.dim == 1``, 1-d prior draws) lift the target to dim 1."""
+        from_prior = x0 is None
+        if from_prior:  # the prior draws on its generator's device
             x0 = self.target.sample_prior(generator, self.n_chains)
         x0 = torch.as_tensor(x0).to(resolve_device(self.device, (x0,)))
-        if x0.dim() == 1:
-            x0 = x0.expand(self.n_chains, -1)
-        if x0.dim() != 2 or x0.shape[0] != self.n_chains:
+        per_chain_1d = x0.dim() == 1 and self.n_chains > 1 and x0.shape[0] == self.n_chains
+        if x0.dim() == 0 or (from_prior and x0.dim() == 1) or (
+            per_chain_1d and self.target.dim == 1
+        ):
+            self._lift_target()
+            x0 = x0[..., None]
+        elif per_chain_1d and self.target.dim is None:
             raise ValueError(
-                f"x0 must be (dim,) or (n_chains={self.n_chains}, dim); got "
-                f"{tuple(x0.shape)}"
+                f"ambiguous initial value: x0 has shape {tuple(x0.shape)} with "
+                f"n_chains={self.n_chains} and target.dim unset — cannot tell "
+                "one (D,)-vector position shared by all chains from per-chain "
+                "scalar positions. Set Target(dim=...) or pass x0 shaped "
+                "(n_chains, dim)."
             )
-        x0 = x0.contiguous()
+        if x0.dim() == 1 or x0.shape[0] != self.n_chains:
+            x0 = x0.expand((self.n_chains,) + tuple(x0.shape))
+        return x0.contiguous()
+
+    def _lift_target(self):
+        """Wrap every function of the target to take (C, 1) positions where
+        the user's take (C,)."""
+        if self._lifted:
+            return
+        orig = self.target
+
+        def wrap(f, shape=()):
+            if f is None:
+                return None
+            return lambda x: f(x[:, 0]).reshape((-1,) + shape)
+
+        def wrap_vg(f):
+            if f is None:
+                return None
+
+            def vg(x):
+                v, g = f(x[:, 0])
+                return v, g.reshape(-1, 1)
+
+            return vg
+
+        self.target = dataclasses.replace(
+            orig,
+            logdensity_fn=wrap(orig.logdensity_fn),
+            loglikelihood_fn=wrap(orig.loglikelihood_fn),
+            logprior_fn=wrap(orig.logprior_fn),
+            grad_fn=wrap(orig.grad_fn, (1,)),
+            value_and_grad_fn=wrap_vg(orig.value_and_grad_fn),
+            tensor_fn=wrap(orig.tensor_fn, (1, 1)),
+            dtensor_fn=wrap(orig.dtensor_fn, (1, 1, 1)),
+            dim=1,
+        )
+        self._lifted = True
+
+    def _squeeze(self, chain: Chain) -> Chain:
+        """Drop the lifted trailing axis from the traces, so a scalar target
+        yields scalar draw series (the final state stays lifted)."""
+        if not self._lifted:
+            return chain
+
+        def sq(d):
+            return {k: (v[..., 0] if (v.dim() >= 3 and v.shape[-1] == 1) else v)
+                    for k, v in d.items()}
+
+        return dataclasses.replace(chain, samples=sq(chain.samples),
+                                   diagnostics=sq(chain.diagnostics))
+
+    def _checkin(self, x0):
+        """The initial value must lie inside the target's support."""
         lt0 = self.target.logdensity(x0[:1])
         if not bool(torch.isfinite(lt0).all()):
             raise ValueError(
                 f"log-target not finite at the initial value "
                 f"(logdensity={float(lt0[0])}): initial value out of support"
             )
-        return x0
 
     def _init_states(self, generator, x0, momentum=None):
         # only the Hamiltonian samplers' init takes a momentum
@@ -308,10 +416,12 @@ class MCJob:
         """Run all ``mcrange.n_steps`` steps, adapting during burnin and
         saving the post-burnin draws."""
         x0 = self._prepare_x0(generator, x0)
+        self._checkin(x0)
         states = self._init_states(generator, x0)
         buffers = ({}, {})
         states = self._loop(states, generator, 0, self.mcrange.n_steps, True, buffers)
-        return Chain(samples=buffers[0], diagnostics=buffers[1], final_state=states)
+        return self._squeeze(
+            Chain(samples=buffers[0], diagnostics=buffers[1], final_state=states))
 
     def run_phased(self, generator=None, x0=None):
         """Warmup (init + burnin steps with adaptation, then the tuner's
@@ -319,6 +429,7 @@ class MCJob:
         ``(chain, {'warmup_seconds', 'sampling_seconds'})``; on a CUDA device
         each phase ends in a synchronise."""
         x0 = self._prepare_x0(generator, x0)
+        self._checkin(x0)
         device = x0.device
         _sync(device)
         t0 = time.perf_counter()
@@ -334,7 +445,8 @@ class MCJob:
         states = self._loop(states, generator, burnin, self.mcrange.n_steps, False, buffers)
         _sync(device)
         t2 = time.perf_counter()
-        chain = Chain(samples=buffers[0], diagnostics=buffers[1], final_state=states)
+        chain = self._squeeze(
+            Chain(samples=buffers[0], diagnostics=buffers[1], final_state=states))
         return chain, {"warmup_seconds": t1 - t0, "sampling_seconds": t2 - t1}
 
     # ---------------------------------------- dense ensemble preconditioning

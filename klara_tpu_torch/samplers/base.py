@@ -41,6 +41,70 @@ def metropolis_accept(log_ratio, generator=None, u=None):
     return log_ratio > torch.log(u)
 
 
+def chain_view(t, like):
+    """A (C,) tensor shaped to broadcast against the (C, ...) ``like``."""
+    return t.view((-1,) + (1,) * (like.dim() - 1))
+
+
+def accept_prob(log_ratio):
+    """min(1, e^ratio), computed without overflow."""
+    return torch.clamp_max(torch.exp(torch.clamp_max(log_ratio, 0.0)), 1.0)
+
+
+def draw_normal(like, generator=None):
+    return torch.randn(like.shape, generator=generator, device=like.device, dtype=like.dtype)
+
+
+def draw_uniform(shape, like, generator=None):
+    return torch.rand(shape, generator=generator, device=like.device, dtype=like.dtype)
+
+
+def tensor_like(value, like):
+    """``value`` as a tensor of ``like``'s dtype on its device.  A Python
+    number becomes a 0-d fill: a copy from host memory would make the host
+    wait for the device at every call."""
+    if torch.is_tensor(value):
+        return value.to(dtype=like.dtype, device=like.device)
+    if isinstance(value, (int, float)):
+        return torch.full((), float(value), dtype=like.dtype, device=like.device)
+    return torch.as_tensor(value, dtype=like.dtype, device=like.device)
+
+
+def scale_matrix(value, position):
+    """A scalar, (D,) vector or (D, D) matrix (None: the identity) as one
+    (C, D, D) matrix per chain of the (C, D) ``position``; a (C, D, D) tensor
+    is taken as is."""
+    C, d = position.shape
+    kw = dict(dtype=position.dtype, device=position.device)
+    eye = torch.eye(d, **kw)
+    if value is None:
+        m = eye
+    else:
+        m = tensor_like(value, position)
+        if m.dim() == 0:
+            m = eye * m
+        elif m.dim() == 1:
+            m = torch.diag(m)
+    return m.expand(C, d, d).contiguous()
+
+
+def cholesky_or_nan(a):
+    """Lower Cholesky factor of each (..., D, D) matrix of the batch, from its
+    symmetric part; a matrix that is not positive definite gets a factor of
+    NaN and the others are unaffected.  No status is read back to the host
+    (``torch.linalg.cholesky`` raises on failure, and on CUDA synchronises
+    every call to learn of it)."""
+    factor, info = torch.linalg.cholesky_ex(0.5 * (a + a.mT), check_errors=False)
+    return torch.where((info != 0)[..., None, None], torch.nan, factor)
+
+
+def inverse_or_nan(a):
+    """Inverse of each (..., D, D) matrix; a singular one becomes NaN, with
+    no status read back to the host."""
+    inv, info = torch.linalg.inv_ex(a, check_errors=False)
+    return torch.where((info != 0)[..., None, None], torch.nan, inv)
+
+
 def per_chain_step(step, C, dtype, device):
     """A step size as a (C,) tensor: a tensor (per chain, or one that
     broadcasts to (C,)) is taken as is, a number is filled."""

@@ -4,7 +4,8 @@ klara_tpu/samplers/hamiltonian.py).
 Per-chain control flow is masked, not looped per chain: ``leapfrog`` takes a
 per-chain step count, runs to the batch maximum and freezes finished chains
 with ``torch.where``; the step-size search keeps a per-chain ε and "active"
-flag and evaluates the target on the whole batch each iteration.
+flag and evaluates the target on the whole batch each iteration.  A per-chain
+position may have any rank: (C,) scalars, (C, D) vectors, (C, A, B) matrices.
 """
 
 from __future__ import annotations
@@ -14,15 +15,16 @@ from typing import NamedTuple
 
 import torch
 
-from klara_tpu_torch.samplers.base import per_chain_step
+from klara_tpu_torch.models.graph import chain_sum
+from klara_tpu_torch.samplers.base import chain_view, per_chain_step
 from klara_tpu_torch.tuners.tuners import DualAveragingTuner
 
 
 def hamiltonian(logtarget, momentum, inv_mass=None):
     """H(x, p) in log-target convention: logtarget − ½ pᵀM⁻¹p, per chain."""
     if inv_mass is None:
-        return logtarget - 0.5 * torch.square(momentum).sum(-1)
-    return logtarget - 0.5 * (inv_mass * torch.square(momentum)).sum(-1)
+        return logtarget - 0.5 * chain_sum(torch.square(momentum))
+    return logtarget - 0.5 * chain_sum(inv_mass * torch.square(momentum))
 
 
 def sample_momentum(generator, position, inv_mass=None):
@@ -47,7 +49,7 @@ def leapfrog_step(target, pp: PhasePoint, eps, inv_mass=None) -> PhasePoint:
     """One leapfrog step; ``eps`` is a scalar or a per-chain (C,) tensor."""
     eps = torch.as_tensor(eps, dtype=pp.position.dtype, device=pp.position.device)
     if eps.dim() == 1:
-        eps = eps[:, None]
+        eps = chain_view(eps, pp.position)
     p_half = pp.momentum + 0.5 * eps * pp.gradlogtarget
     vel = p_half if inv_mass is None else inv_mass * p_half
     x = pp.position + eps * vel

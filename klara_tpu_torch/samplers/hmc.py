@@ -14,7 +14,7 @@ from typing import NamedTuple
 
 import torch
 
-from klara_tpu_torch.samplers.base import Info, Sampler, metropolis_accept
+from klara_tpu_torch.samplers.base import Info, Sampler, chain_view, metropolis_accept
 from klara_tpu_torch.samplers.hamiltonian import (
     PhasePoint,
     hamiltonian,
@@ -122,7 +122,7 @@ class HMC(Sampler):
         ratio = torch.where(torch.isnan(ratio), torch.full_like(ratio, -math.inf), ratio)
 
         accept = metropolis_accept(ratio, generator, u)
-        acc = accept[:, None]
+        acc = chain_view(accept, x)
         new_state = state._replace(
             position=torch.where(acc, pp.position, x),
             logtarget=torch.where(accept, pp.logtarget, lt),

@@ -20,7 +20,14 @@ import torch
 
 from klara_tpu_torch.distributions.core import draw_per_chain
 from klara_tpu_torch.models.graph import chain_sum
-from klara_tpu_torch.samplers.base import Info, Sampler, metropolis_accept, per_chain_step
+from klara_tpu_torch.samplers.base import (
+    Info,
+    Sampler,
+    accept_prob,
+    chain_view,
+    metropolis_accept,
+    per_chain_step,
+)
 from klara_tpu_torch.tuners.tuners import TuneState
 
 
@@ -28,11 +35,6 @@ class MHState(NamedTuple):
     position: torch.Tensor   # (C, ...)
     logtarget: torch.Tensor  # (C,)
     tune: TuneState
-
-
-def _per_chain(t, like):
-    """A (C,) tensor shaped to broadcast against the (C, ...) ``like``."""
-    return t.view((-1,) + (1,) * (like.dim() - 1))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,8 +63,8 @@ class MH(Sampler):
         if not isinstance(sigma, (int, float)):
             sigma = torch.as_tensor(sigma, dtype=x.dtype, device=x.device)
         if torch.is_tensor(sigma) and sigma.dim() == 2:
-            return x + _per_chain(scale, x) * (z @ sigma.T)
-        return x + _per_chain(scale, x) * sigma * z
+            return x + chain_view(scale, x) * (z @ sigma.T)
+        return x + chain_view(scale, x) * sigma * z
 
     def step(self, state: MHState, target, generator=None, z=None, u=None):
         """One MH transition for every chain.  ``z`` (the proposal's
@@ -91,12 +93,12 @@ class MH(Sampler):
                     )
 
         accept = metropolis_accept(ratio, generator, u)
-        acc = _per_chain(accept, x)
+        acc = chain_view(accept, x)
         position = torch.where(acc, x_new, x)
         logtarget = torch.where(accept, lt_new, lt)
         info = Info(
             accept=accept,
-            accept_stat=torch.clamp_max(torch.exp(torch.clamp_max(ratio, 0.0)), 1.0),
+            accept_stat=accept_prob(ratio),
             logtarget=logtarget,
         )
         return MHState(position, logtarget, state.tune), info

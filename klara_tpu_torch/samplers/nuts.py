@@ -31,7 +31,8 @@ from typing import NamedTuple
 
 import torch
 
-from klara_tpu_torch.samplers.base import Info, Sampler
+from klara_tpu_torch.models.graph import chain_sum
+from klara_tpu_torch.samplers.base import Info, Sampler, chain_view
 from klara_tpu_torch.samplers.hamiltonian import (
     PhasePoint,
     hamiltonian,
@@ -43,10 +44,10 @@ from klara_tpu_torch.tuners.tuners import TuneState
 
 
 class NUTSState(NamedTuple):
-    position: torch.Tensor       # (C, D)
+    position: torch.Tensor       # (C, D); any per-chain rank works: (C,), (C, A, B)
     logtarget: torch.Tensor      # (C,)
-    gradlogtarget: torch.Tensor  # (C, D)
-    inv_mass: torch.Tensor       # (C, D) diagonal inverse mass (1 = identity)
+    gradlogtarget: torch.Tensor  # as position
+    inv_mass: torch.Tensor       # as position: diagonal inverse mass (1 = identity)
     tune: TuneState
 
 
@@ -87,9 +88,9 @@ def _turn(pos_hi, mom_hi, pos_lo, mom_lo, v, inv_mass):
     """U-turn criterion between trajectory-ordered ends, per chain (C,);
     ``v`` is the (C,) build direction or the float 1.0.  With a diagonal
     mass the criterion uses velocities M⁻¹p."""
-    d = (v[:, None] if torch.is_tensor(v) else v) * (pos_hi - pos_lo)
-    return ((d * (inv_mass * mom_hi)).sum(-1) < 0.0) | (
-        (d * (inv_mass * mom_lo)).sum(-1) < 0.0
+    d = (chain_view(v, pos_hi) if torch.is_tensor(v) else v) * (pos_hi - pos_lo)
+    return (chain_sum(d * (inv_mass * mom_hi)) < 0.0) | (
+        chain_sum(d * (inv_mass * mom_lo)) < 0.0
     )
 
 
@@ -339,9 +340,10 @@ class NUTS(Sampler):
                 vel_hi = inv_mass * z_new.momentum
                 for m in range(1, min(big_m, md) + 1):
                     lslot = min(bin(k + 1 - (1 << m)).count("1"), md)
-                    d = v[:, None] * (z_new.position - ckpt_pos[lslot].to(f))
-                    dot_hi = (d * vel_hi).sum(-1)
-                    dot_lo = (d * (inv_mass * ckpt_mom[lslot].to(f))).sum(-1)
+                    d = chain_view(v, z_new.position) * (
+                        z_new.position - ckpt_pos[lslot].to(f))
+                    dot_hi = chain_sum(d * vel_hi)
+                    dot_lo = chain_sum(d * (inv_mass * ckpt_mom[lslot].to(f)))
                     turned = turned | (dot_hi < 0.0) | (dot_lo < 0.0)
             z = _where(s, z_new, z)
             s = s & s_leaf & ~turned

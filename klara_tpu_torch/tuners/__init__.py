@@ -2,6 +2,8 @@ from klara_tpu_torch.tuners.tuners import (
     AcceptanceRateTuner,
     DualAveragingExtra,
     DualAveragingTuner,
+    RobertsRosenthalExtra,
+    RobertsRosenthalTuner,
     Tuner,
     TuneState,
     VanillaTuner,
@@ -18,4 +20,6 @@ __all__ = [
     "erf_rate_score",
     "DualAveragingTuner",
     "DualAveragingExtra",
+    "RobertsRosenthalTuner",
+    "RobertsRosenthalExtra",
 ]

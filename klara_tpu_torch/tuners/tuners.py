@@ -3,7 +3,6 @@
 Counterpart of klara_tpu/tuners/tuners.py.  Every field of ``TuneState``
 carries a leading chains axis (C,), as the JAX state does under the job's
 vmap; the updates are elementwise, so one call updates every chain.
-``RobertsRosenthalTuner`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -170,3 +169,65 @@ class DualAveragingTuner(Tuner):
     def set_mu_from_step(self, tune: TuneState) -> TuneState:
         """Re-anchor μ = log(10·step) after an initial step-size search."""
         return tune._replace(extra=tune.extra._replace(mu=torch.log(10.0 * tune.step)))
+
+
+class RobertsRosenthalExtra(NamedTuple):
+    batch: torch.Tensor  # completed adaptation batches, (C,) int32
+
+
+@dataclasses.dataclass(frozen=True)
+class RobertsRosenthalTuner(Tuner):
+    """Per-coordinate ±δ adaptation of logσ (Roberts & Rosenthal 2009): after
+    each batch of ``period`` proposals, δ = min(0.01, batch^-½) and
+    logσ_i moves up or down by δ as coordinate i's observed rate lies above
+    or below the target.
+
+    ``tune.step`` holds logσ, (C, D); ``accept`` is the (C, D) per-coordinate
+    acceptance of one AMWG sweep.  The adaptation never stops: its
+    diminishing δ keeps the chain ergodic, so ``burnin`` is not consulted.
+    """
+
+    targetrate: float = 0.44
+    period: int = dataclasses.field(default=50, kw_only=True)
+
+    def _extra_init(self, step0):
+        return RobertsRosenthalExtra(
+            batch=torch.zeros(step0.shape[:1], dtype=torch.int32, device=step0.device)
+        )
+
+    def init_vector(self, logsigma0) -> TuneState:
+        """The tune state of a (C, D) logσ: per-coordinate acceptance counts,
+        per-chain counters."""
+        logsigma0 = torch.as_tensor(logsigma0)
+        per_chain = dict(device=logsigma0.device)
+        C = logsigma0.shape[:1]
+        return TuneState(
+            step=logsigma0,
+            accepted=torch.zeros_like(logsigma0),
+            proposed=torch.zeros(C, dtype=torch.int32, **per_chain),
+            totproposed=torch.zeros(C, dtype=torch.int32, **per_chain),
+            rate=torch.full(C, math.nan, dtype=logsigma0.dtype, **per_chain),
+            extra=self._extra_init(logsigma0),
+        )
+
+    def update(self, tune: TuneState, accept, accept_stat=None, burnin: int = 0) -> TuneState:
+        f = tune.step.dtype
+        accepted = tune.accepted + torch.as_tensor(accept).to(f)
+        proposed = tune.proposed + 1
+        at_boundary = proposed % self.period == 0  # (C,)
+        rate = accepted / torch.clamp_min(proposed, 1).to(f)[:, None]
+
+        batch = tune.extra.batch + at_boundary.to(torch.int32)
+        # batch 0 gives inf, and min(0.01, inf) = 0.01 (an integer tensor
+        # cannot take a negative power)
+        delta = torch.clamp_max(batch.to(f) ** -0.5, 0.01)[:, None]
+        adjusted = tune.step + torch.where(rate < self.targetrate, -delta, delta)
+        fire = at_boundary[:, None]
+        step = torch.where(fire, adjusted, tune.step)
+
+        totproposed = torch.where(at_boundary, tune.totproposed + proposed, tune.totproposed)
+        accepted = torch.where(fire, torch.zeros_like(accepted), accepted)
+        mean_rate = torch.where(at_boundary, rate.mean(-1), tune.rate)
+        proposed = torch.where(at_boundary, torch.zeros_like(proposed), proposed)
+        return TuneState(step, accepted, proposed, totproposed, mean_rate,
+                         RobertsRosenthalExtra(batch))
