@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch port (klara_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                # phases 1-20
+    python3 chip_smoke.py                # phases 1-23
     python3 chip_smoke.py --zoo-only     # phases 1-4 and 12-20 (the sampler zoo)
+    python3 chip_smoke.py --io-only      # phases 1-4 and 21-23 (the output layer)
     python3 chip_smoke.py --profile DIR  # also profile stage 2 of both logreg rows and the Gibbs sweep
     python3 chip_smoke.py --stage1-sensitivity  # only: stage 1 with K1 and with the plain version, three seeds
 
@@ -85,10 +86,39 @@ Phases, each of which raises on failure (the script then exits non-zero):
    log-target the target's;
 20. record all 13 monitored slots on the swiss target (D=4, 64 chains, 50
    draws, MALA): shapes, finiteness, and target = likelihood + prior for the
-   log-density, gradient, tensor and dtensor slots.
+   log-density, gradient, tensor and dtensor slots;
+21. stream MALA on the bench target to CSV: 4096 chains from phase 4's final
+   positions, pooled dual averaging at 0.574, 100 burnin + 64 draws,
+   ``destination="csv"``, ``stream_chunk=16``, into a temporary directory
+   (removed at the end), beside its ``destination="nstate"`` twin from the
+   same generator seed.  The directory read back by ``kt.io.read_chain``
+   must equal the twin's trace and the final states must agree, bit for bit;
+   the stream must add one host read per chunk that saved a draw (counted
+   under sync debug mode "warn") and keep its ring on the card; K1 launches
+   once a step and once at init and holds against its plain version on the
+   final positions.  A 50-step run with ``verbose=True, progress_period=25``
+   prints two progress lines and adds two host reads; with ``verbose=False``
+   it reads no more than the twin.  10 steps under ``trace_profile`` must
+   leave a Chrome trace with K1 in it.  Prints the seconds of both runs, the
+   MB written, the writer's MB/s and the time of the device→host copies;
+22. checkpoint the twin's final state and generator (``kt.io.save_checkpoint``),
+   resume once with the live generator, load the file into fresh card
+   tensors and a fresh card generator and resume again: both resumes must
+   agree bit for bit, the tuner state must survive the file, and K1 must
+   launch once a step in each; prints the file's MB and the seconds to save
+   and to load;
+23. run the conjugate rats model (``GibbsJob``, 4096 chains, 500 sweeps, 100
+   burnin) with ``alpha_c`` and ``sigma2_c`` streamed to CSV
+   (``stream_chunk=128``) and the other three monitored variables in device
+   traces, then ``resume``, beside an all-nstate twin of the same seed: the
+   csv variables read back (two appended segments) and the nstate ones must
+   equal the twin's, the stream must add one host read per chunk, and K1
+   must not launch.
 
 The Gibbs paths launch no K1 (their sweep is plain torch ops in both
-packages); the kernels line records their K1 count, 0.
+packages); the kernels line records their K1 count, 0.  The output layer
+adds no kernel: phases 21-22 launch K1 on new paths (``io_stream_mala``,
+``io_resume_mala``) and phase 23 launches none (``io_gibbs_csv``).
 
 With ``--profile DIR``, 200 stage-2 steps of phase 4's sampler are
 profiled after phase 4 (``profile_chees``; DIR/profile_chees.json), 200
@@ -111,12 +141,18 @@ tolerances.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 
 import torch
 
@@ -190,6 +226,13 @@ ZOO_STEPS = {
 # static vs looped tree on the same draws: positions and discrete outcomes
 # exact; `a` sums up to 31 f32 terms in another order
 TREE_STEPS, A_RTOL = 10, 1e-5
+# the output layer (phases 21-23): MALA at the zoo's width with a short csv run
+# (64 draws of 4096 x 100 values: ~26M values, ~340 MB of CSV), and the rats row
+# cut from 30000 sweeps to 500
+IO_BURNIN, IO_POST, IO_CHUNK, IO_SEED = 100, 64, 16, 11
+IO_VERBOSE_STEPS, IO_PERIOD = 50, 25
+IO_GIBBS_SWEEPS, IO_GIBBS_BURNIN, IO_GIBBS_CHUNK = 500, 100, 128
+IO_GIBBS_CSV = ("alpha_c", "sigma2_c")
 
 
 def _card_line() -> str:
@@ -1101,27 +1144,36 @@ def run_gibbs_nested(conj_summary, device="cuda", chains=GIBBS_CHAINS, sweeps=NE
 
 
 # ------------------------------------------------------------------ the zoo
-def _count_host_reads(fn):
-    """Run ``fn`` under sync debug mode 'warn' and count the warnings: every
-    operation that makes the host wait for the device emits one.  Returns the
-    count and the source lines that made them."""
-    import warnings
-
+@contextlib.contextmanager
+def _host_reads():
+    """Count the host reads of the block: under sync debug mode 'warn' every
+    operation that makes the host wait for the device emits one warning.
+    Yields a list that holds, after the block, the count and the source lines
+    that made them."""
     torch.cuda.synchronize()
     mode = torch.cuda.get_sync_debug_mode()
-    fn()  # once uncounted: the first call of an operation may set up a library handle
-    torch.cuda.synchronize()
+    out = []
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            fn()
+            yield out
         finally:
             torch.cuda.set_sync_debug_mode(mode)
     torch.cuda.synchronize()
     reads = [w for w in caught if "synchronizing cuda operation" in str(w.message).lower()]
-    sites = sorted({f"{os.path.basename(w.filename)}:{w.lineno}" for w in reads})
-    return len(reads), sites
+    out.extend([len(reads), sorted({f"{os.path.basename(w.filename)}:{w.lineno}" for w in reads})])
+
+
+def _count_host_reads(fn):
+    """Run ``fn`` once uncounted (the first call of an operation may set up a
+    library handle), then once under ``_host_reads``.  Returns the count and
+    the source lines that made them."""
+    torch.cuda.synchronize()
+    fn()
+    with _host_reads() as got:
+        fn()
+    return got[0], got[1]
 
 
 def _profile_device(fn):
@@ -1444,6 +1496,321 @@ def check_monitor_slots(device="cuda", chains=64, draws=50):
     return res
 
 
+# ---------------------------------------------------------- the output layer
+def _same(a, b) -> bool:
+    """Bit-for-bit equality of two states (NamedTuples and tuples of tensors)."""
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype and torch.equal(a, b)
+    if isinstance(a, tuple):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_same(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def _flushes(n_steps, burnin, thinning, chunk):
+    """The chunks of a csv run that save at least one draw: each costs the
+    stream one device→host copy per field and one host read."""
+    chunk = max(1, min(chunk, n_steps))
+    return len({i // chunk for i in range(burnin, n_steps, thinning)})
+
+
+def _dir_mb(path):
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)) / 1e6
+
+
+@contextlib.contextmanager
+def _timed_writer(spent):
+    """Add to ``spent`` the seconds in ``StreamingWriter.append_block``
+    ('write': conversion, formatting and file writes), in the ``%.9g``
+    formatting alone ('format') and in ``DrawRing.take`` ('take': the
+    device→host copies and the wait for the chunk's steps)."""
+    from klara_tpu_torch.io import stream
+
+    saved = (stream.StreamingWriter.append_block, stream.format_rows, stream.DrawRing.take)
+
+    def timed(fn, key):
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+        return wrapper
+
+    stream.StreamingWriter.append_block = timed(saved[0], "write")
+    stream.format_rows = timed(saved[1], "format")
+    stream.DrawRing.take = timed(saved[2], "take")
+    try:
+        yield spent
+    finally:
+        stream.StreamingWriter.append_block, stream.format_rows, stream.DrawRing.take = saved
+
+
+def _counted(fn):
+    """``fn()`` under ``_host_reads``, ended by a synchronise: (its result,
+    [host reads, their sources], seconds)."""
+    with _host_reads() as reads:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    return out, reads, secs
+
+
+def _mala_io_job(target, chains, n_steps, burnin, **kw):
+    import klara_tpu_torch as kt
+
+    return kt.MCJob(target, kt.MALA(), kt.MCRange(n_steps=n_steps, burnin=burnin),
+                    tuner=kt.DualAveragingTuner(MALA_RATE, IO_BURNIN), n_chains=chains,
+                    monitor=("value", "logtarget"), diagnostics=("accept",),
+                    pooled_tuning=True, step_size=0.005, **kw)
+
+
+def run_io_stream(x_end, tmp, device="cuda", chains=ZOO_CHAINS, dim=DIM, n_data=N_DATA,
+                  burnin=IO_BURNIN, post=IO_POST, chunk=IO_CHUNK):
+    """Phase 21: MALA on the bench target streamed to CSV under ``tmp``,
+    against its nstate twin; then the verbose runs and ``trace_profile``.
+    Returns (results, twin job, twin chain, twin's generator, (X, y))."""
+    import klara_tpu_torch as kt
+    from klara_tpu_torch.models.examples import synthetic_logistic_regression
+    from klara_tpu_torch.ops import logreg
+    from klara_tpu_torch.utils import trace_profile
+
+    target, X, y = synthetic_logistic_regression(dim=dim, n_data=n_data, device=device)
+    x0 = x_end[:chains].contiguous()
+    n_steps = burnin + post
+    csv_dir = os.path.join(tmp, "mala")
+    job = _mala_io_job(target, chains, n_steps, burnin, destination="csv", filepath=csv_dir,
+                       stream_chunk=chunk)
+    spent = {"write": 0.0, "format": 0.0, "take": 0.0}
+    logreg.KERNEL_LAUNCHES = 0
+    with _timed_writer(spent):
+        chain, reads, csv_secs = _counted(
+            lambda: job.run(torch.Generator(device=device).manual_seed(IO_SEED), x0))
+    launches = logreg.KERNEL_LAUNCHES
+
+    twin_job = _mala_io_job(target, chains, n_steps, burnin)
+    gen = torch.Generator(device=device).manual_seed(IO_SEED)
+    twin, twin_reads, twin_secs = _counted(lambda: twin_job.run(gen, x0))
+
+    t0 = time.perf_counter()
+    back = kt.io.read_chain(csv_dir, device=device)
+    torch.cuda.synchronize()
+    read_secs = time.perf_counter() - t0
+    mb = _dir_mb(csv_dir)
+    flushes = _flushes(n_steps, burnin, 1, chunk)
+    failures = []
+    if chain.samples or chain.diagnostics:
+        failures.append("a csv run returned a device trace")
+    if set(back.samples) != {"value", "logtarget"} or set(back.diagnostics) != {"accept"}:
+        failures.append(f"read back {sorted(back.samples)} / {sorted(back.diagnostics)}")
+    for k in ("value", "logtarget", "accept"):
+        if tuple(back[k].shape) != tuple(twin[k].shape) or not torch.equal(
+                back[k].to(twin[k].dtype), twin[k]):
+            failures.append(f"streamed {k} differs from the nstate twin's trace")
+    if not _same(chain.final_state, twin.final_state):
+        failures.append("the csv run's final state differs from the nstate twin's")
+    if job._ring.bufs["value"].device.type != "cuda":
+        failures.append(f"the stream's ring lives on {job._ring.bufs['value'].device}")
+    if reads[0] - twin_reads[0] != flushes:
+        failures.append(f"the stream added {reads[0] - twin_reads[0]} host reads, not one per "
+                        f"flush ({flushes}): {reads[1]}")
+    if launches != n_steps + 1:
+        failures.append(f"{launches} K1 launches, expected one a step and one at init")
+
+    # verbose: two progress lines and two reads more than the same run without
+    progress = {}
+    for verbose in (False, True):
+        out = io.StringIO()
+        vjob = _mala_io_job(target, chains, IO_VERBOSE_STEPS, IO_VERBOSE_STEPS // 2,
+                            verbose=verbose, progress_period=IO_PERIOD)
+        with contextlib.redirect_stdout(out):
+            _, r, _ = _counted(
+                lambda: vjob.run(torch.Generator(device=device).manual_seed(IO_SEED), x0))
+        lines = [ln for ln in out.getvalue().splitlines() if ln.endswith("% acceptance rate")]
+        progress[verbose] = (r[0], lines)
+        for ln in lines:
+            print(f"# {ln}", flush=True)
+    want_lines = IO_VERBOSE_STEPS // IO_PERIOD
+    if len(progress[True][1]) != want_lines or progress[False][1]:
+        failures.append(f"progress lines: {progress}")
+    if progress[True][0] - progress[False][0] != want_lines:
+        failures.append(f"verbose added {progress[True][0] - progress[False][0]} host reads, "
+                        f"not {want_lines}")
+    if progress[False][0] != twin_reads[0]:
+        failures.append(f"{progress[False][0]} host reads in {IO_VERBOSE_STEPS} quiet steps, "
+                        f"{twin_reads[0]} in {n_steps}: a read per step")
+
+    trace_dir = os.path.join(tmp, "trace")
+    with trace_profile(trace_dir, label="io_mala"):
+        _mala_io_job(target, chains, 10, 5).run(torch.Generator(device=device).manual_seed(1), x0)
+    with open(os.path.join(trace_dir, "io_mala.trace.json")) as f:
+        k1_events = sum("logreg_value_grad_kernel" in e.get("name", "")
+                        for e in json.load(f)["traceEvents"])
+    if k1_events < 10:
+        failures.append(f"trace_profile's trace holds {k1_events} K1 kernels, not 11")
+
+    res = {
+        "chains": chains, "burnin": burnin, "post": post, "stream_chunk": chunk,
+        "csv_seconds": csv_secs,
+        "nstate_twin_seconds": twin_secs,
+        "mb_written": mb,
+        "writer_seconds": spent["write"],
+        "writer_mb_per_s": mb / spent["write"],
+        "format_seconds": spent["format"],
+        "take_seconds": spent["take"],
+        "read_back_seconds": read_secs,
+        "flushes": flushes,
+        "host_reads_csv": reads[0],
+        "host_reads_twin": twin_reads[0],
+        "host_read_sites_csv": reads[1],
+        "host_reads_quiet_50": progress[False][0],
+        "host_reads_verbose_50": progress[True][0],
+        "trace_profile_k1_kernels": k1_events,
+        "acceptance": float(twin["accept"].to(torch.float32).mean()),
+        "k1_launches": launches,
+        "k1_max_abs_err_on_path": _k1_error(chain.final_state.position.contiguous(), X, y),
+    }
+    print(f"# io_stream_mala {chains}x{dim}x{n_data}: {json.dumps(res)}", flush=True)
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return res, twin_job, twin, gen, (X, y)
+
+
+def run_io_resume(job, twin, gen, data, tmp, device="cuda"):
+    """Phase 22: checkpoint the twin's final state and generator, resume from
+    the live ones and from the file; the two must agree bit for bit."""
+    import klara_tpu_torch as kt
+    from klara_tpu_torch.ops import logreg
+
+    path = os.path.join(tmp, "mala.npz")
+    t0 = time.perf_counter()
+    kt.io.save_checkpoint(path, {"state": twin.final_state, "generator": gen})
+    save_secs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree = kt.io.load_checkpoint(path, like={"state": twin.final_state,
+                                             "generator": torch.Generator(device=device)})
+    torch.cuda.synchronize()
+    load_secs = time.perf_counter() - t0
+    failures = []
+    state = tree["state"]
+    if not _same(state, twin.final_state):
+        failures.append("the state read back differs from the one saved")
+    if state.position.device.type != "cuda" or tree["generator"].device.type != "cuda" or (
+            state.position.data_ptr() == twin.final_state.position.data_ptr()):
+        failures.append("the checkpoint did not load into fresh card tensors and generator")
+
+    logreg.KERNEL_LAUNCHES = 0
+    live = job.resume(gen, twin)
+    again = job.resume(tree["generator"], dataclasses.replace(twin, final_state=state))
+    torch.cuda.synchronize()
+    launches = logreg.KERNEL_LAUNCHES
+    for k in ("value", "logtarget", "accept"):
+        if not torch.equal(live[k], again[k]):
+            failures.append(f"the resumed {k} traces differ")
+    if not _same(live.final_state, again.final_state):
+        failures.append("the resumed final states differ")
+    if launches != 2 * job.mcrange.n_steps:
+        failures.append(f"{launches} K1 launches in two resumes, expected one a step")
+    res = {
+        "checkpoint_mb": os.path.getsize(path) / 1e6,
+        "save_seconds": save_secs,
+        "load_seconds": load_secs,
+        "resume_acceptance": float(again["accept"].to(torch.float32).mean()),
+        "k1_launches": launches,
+        "k1_max_abs_err_on_path": _k1_error(again.final_state.position.contiguous(), *data),
+    }
+    print(f"# io_resume_mala: {json.dumps(res)}", flush=True)
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return res
+
+
+def run_io_gibbs(tmp, device="cuda", chains=GIBBS_CHAINS, sweeps=IO_GIBBS_SWEEPS,
+                 burnin=IO_GIBBS_BURNIN, chunk=IO_GIBBS_CHUNK):
+    """Phase 23: the conjugate rats model with two variables streamed to CSV,
+    run and resumed, against an all-nstate twin of the same seed."""
+    import klara_tpu_torch as kt
+    from klara_tpu_torch.models.examples import rats_gibbs_model
+    from klara_tpu_torch.ops import logreg
+
+    model, v0 = rats_gibbs_model(device=device)
+    dirs = {k: os.path.join(tmp, k) for k in IO_GIBBS_CSV}
+    kw = dict(model=model, sweep={}, mcrange=kt.MCRange(n_steps=sweeps, burnin=burnin),
+              n_chains=chains, monitor=GIBBS_MONITOR, device=device)
+    job = kt.GibbsJob(**kw, stream_chunk=chunk,
+                      outopts={k: {"destination": "csv", "filepath": d} for k, d in dirs.items()})
+    twin = kt.GibbsJob(**kw)
+
+    def both(j):
+        gen = torch.Generator(device=device).manual_seed(5)
+        first = j.run(gen, v0)
+        return first, j.resume(gen, first, v0)
+
+    spent = {"write": 0.0, "format": 0.0, "take": 0.0}
+    logreg.KERNEL_LAUNCHES = 0
+    with _timed_writer(spent):
+        (first, second), reads, secs = _counted(lambda: both(job))
+    launches = logreg.KERNEL_LAUNCHES
+    (first_t, second_t), twin_reads, twin_secs = _counted(lambda: both(twin))
+    n_post = kw["mcrange"].n_post
+    flushes = 2 * _flushes(sweeps, burnin, 1, chunk)
+    failures = []
+    for k, d in dirs.items():
+        back = kt.io.read_chain(d, device=device)[k]
+        if tuple(back.shape) != (2 * n_post, chains):
+            failures.append(f"{k} read back as {tuple(back.shape)}")
+        elif not (torch.equal(back[:n_post].to(torch.float32), first_t.samples[k])
+                  and torch.equal(back[n_post:].to(torch.float32), second_t.samples[k])):
+            failures.append(f"streamed {k} differs from the nstate twin's trace")
+        if k in first.samples:
+            failures.append(f"csv variable {k} kept a device trace")
+    for k in set(GIBBS_MONITOR) - set(IO_GIBBS_CSV):
+        if not (torch.equal(first.samples[k], first_t.samples[k])
+                and torch.equal(second.samples[k], second_t.samples[k])):
+            failures.append(f"nstate variable {k} differs from the twin's")
+    if any(not torch.equal(second.final_values[k], v) for k, v in second_t.final_values.items()):
+        failures.append("final values differ from the twin's")
+    if reads[0] - twin_reads[0] != flushes:
+        failures.append(f"the stream added {reads[0] - twin_reads[0]} host reads, not one per "
+                        f"flush ({flushes}): {reads[1]}")
+    if launches:
+        failures.append(f"the Gibbs csv path launched K1 {launches} times")
+    mb = sum(_dir_mb(d) for d in dirs.values())
+    res = {
+        "chains": chains, "sweeps": sweeps, "burnin": burnin, "stream_chunk": chunk,
+        "csv_seconds_run_and_resume": secs,
+        "nstate_twin_seconds_run_and_resume": twin_secs,
+        "mb_written": mb,
+        "writer_seconds": spent["write"],
+        "writer_mb_per_s": mb / spent["write"],
+        "format_seconds": spent["format"],
+        "take_seconds": spent["take"],
+        "flushes": flushes,
+        "host_reads_csv": reads[0],
+        "host_reads_twin": twin_reads[0],
+        "k1_launches": launches,
+        "alpha_c_mean": float(second_t.samples["alpha_c"].to(torch.float64).mean()),
+    }
+    print(f"# io_gibbs_csv {chains} chains x {sweeps} sweeps x 2: {json.dumps(res)}", flush=True)
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return res
+
+
+def run_io(x_end):
+    """Phases 21-23 in one temporary directory, removed at the end."""
+    tmp = tempfile.mkdtemp(prefix="klara_io_")
+    try:
+        stream, job, twin, gen, data = run_io_stream(x_end, tmp)
+        resume = run_io_resume(job, twin, gen, data, tmp)
+        del job, twin
+        gibbs = run_io_gibbs(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return stream, resume, gibbs
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1481,6 +1848,10 @@ def main():
         check_monitor_slots()
         print(card)
         return
+    if "--io-only" in sys.argv:
+        run_io(x_end)
+        print(card)
+        return
     nuts, wjob, state, chol, gen, data = run_nuts_precond(chees_summary)
     check_no_host_read(wjob, state, gen)
     if profile_dir:
@@ -1493,16 +1864,19 @@ def main():
         profile_gibbs(gjob, gchains, gv0, ggen, profile_dir)
     nested = run_gibbs_nested(gibbs["by_key"])
     zoo = run_zoo_logreg(x_end, chees_summary)
-    del x_end
     ars = run_zoo_ars()
     slots = check_monitor_slots()
+    io_stream, io_resume, io_gibbs = run_io(x_end)
+    del x_end
 
     by_path = {"chees_precond": chees["k1_launches"], "nuts_precond": nuts["k1_launches"],
                "nuts_looped": looped["k1_launches"], "nuts": raw["k1_launches"],
                "zoo_mala": zoo["mala"]["k1_launches"],
                "zoo_mala_16384": zoo["mala_16384"]["k1_launches"],
                "zoo_smmala": zoo["smmala"]["k1_launches"],
-               "monitor_slots": slots["k1_launches"]}
+               "monitor_slots": slots["k1_launches"],
+               "io_stream_mala": io_stream["k1_launches"],
+               "io_resume_mala": io_resume["k1_launches"]}
     for path, n in by_path.items():
         if n <= 0:
             raise RuntimeError(f"the {path} path launched no K1 kernel")
@@ -1510,13 +1884,15 @@ def main():
     # RAM, AM, AMWG, slice and ARS evaluate logdensity_fn alone, as in the JAX package
     by_path.update(gibbs_rats=gibbs["k1_launches"], gibbs_rats_nested=nested["k1_launches"],
                    **{f"zoo_{k}": zoo[k]["k1_launches"] for k in ("ram", "am", "amwg", "slice")},
-                   zoo_ars=ars["k1_launches"])
+                   zoo_ars=ars["k1_launches"], io_gibbs_csv=io_gibbs["k1_launches"])
     err_by_path = {"chees_precond": chees["k1_max_abs_err_on_path"],
                    "nuts_precond": nuts["k1_max_abs_err_on_path"],
                    "nuts_looped": looped["k1_max_abs_err_on_path"],
                    "nuts": raw["k1_max_abs_err_on_path"],
                    **{f"zoo_{k}": zoo[k]["k1_max_abs_err_on_path"]
-                      for k in ("mala", "mala_16384", "smmala")}}
+                      for k in ("mala", "mala_16384", "smmala")},
+                   "io_stream_mala": io_stream["k1_max_abs_err_on_path"],
+                   "io_resume_mala": io_resume["k1_max_abs_err_on_path"]}
     # 3 TF32 passes x 2 products x 2*C*N*D operations over 495 TFLOP/s: 0.041 ms at the
     # main shape; the 13.6 MB of compulsory traffic would take 0.004 ms
     bound_ms, bound_by = k1_bound_ms(CHAINS, DIM, N_DATA)

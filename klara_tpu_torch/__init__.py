@@ -41,7 +41,7 @@ from klara_tpu_torch.tuners import (
     RobertsRosenthalTuner,
     VanillaTuner,
 )
-from klara_tpu_torch import distributions, stats
+from klara_tpu_torch import distributions, io, stats
 
 __version__ = "0.1.0"
 
@@ -80,5 +80,6 @@ __all__ = [
     "DualAveragingTuner",
     "RobertsRosenthalTuner",
     "distributions",
+    "io",
     "stats",
 ]

@@ -24,9 +24,12 @@ constants; within a chain it keeps the JAX package's shape rule (a Gamma
 with a scalar shape parameter and a vector rate shares one gamma draw
 across the vector).  The draw is cast to the carried value's dtype.
 
-Sweeps run in a Python loop.  The conjugate sweep reads nothing back from
-the device; a nested HMC/NUTS block with dynamic leap counts reads its batch
-maximum once per nested step.  Nested blocks re-initialise their sampler
+Sweeps run in a Python loop.  A variable with ``'csv'`` outopts streams to
+its own directory: its saved draws gather in a ring of ``stream_chunk`` rows
+on the device, and each chunk of sweeps that saved a draw reaches the host
+in one copy per csv variable and one host read.  The conjugate sweep reads
+nothing back from the device; a nested HMC/NUTS block with dynamic leap
+counts reads its batch maximum once per nested step.  Nested blocks re-initialise their sampler
 every sweep, from the current value or a fresh prior draw
 (``reset_from_prior``), and tune per chain during their ``burnin``; HMC/NUTS
 blocks under dual averaging take their initial ε from one step-size search
@@ -44,6 +47,7 @@ import torch
 from klara_tpu_torch.core.device import resolve_device
 from klara_tpu_torch.core.target import Target
 from klara_tpu_torch.distributions.core import draw_per_chain
+from klara_tpu_torch.io.stream import DrawRing, StreamingWriter
 from klara_tpu_torch.jobs.range import MCRange
 from klara_tpu_torch.models.graph import Data, GenericModel, GibbsParameter, Transformation
 from klara_tpu_torch.samplers.base import Sampler
@@ -120,9 +124,12 @@ class GibbsJob:
     n_chains : chains axis
     monitor : dependent variables to record (default: all)
     outopts : per-variable output options
-        {key: {'destination': 'nstate'|'none', ...}}; 'none' keeps no trace
-        (the final value is still returned).  'csv' is not ported yet.
+        {key: {'destination': 'nstate'|'csv'|'none', 'filepath': ..., 'flush': ...}};
+        unlisted variables take 'nstate'.  'csv' streams the variable's draws
+        to files under its ``filepath`` during the run (a ``resume`` appends);
+        'none' keeps no trace (the final value is still returned).
     record_diagnostics : record '<key>.accept' for nested blocks
+    stream_chunk : sweeps per host copy of the csv variables' draws
     hoist_step_search : one step-size search per run for HMC/NUTS nested
         blocks under dual averaging with no ``step_size`` (else one per
         sweep, inside the sampler's ``init``)
@@ -141,6 +148,7 @@ class GibbsJob:
     monitor: Optional[Sequence[str]] = None
     outopts: Dict[str, Dict[str, Any]] = dataclasses.field(default_factory=dict)
     record_diagnostics: bool = True
+    stream_chunk: int = 128
     hoist_step_search: bool = True
     trace_dtype: Optional[str] = None
     device: Any = None
@@ -177,13 +185,8 @@ class GibbsJob:
             opts.update(self.outopts.get(key, {}))
             if opts["destination"] not in ("nstate", "csv", "none"):
                 raise ValueError(f"unknown destination {opts['destination']!r} for {key!r}")
-            if opts["destination"] == "csv":
-                if not opts.get("filepath"):
-                    raise ValueError(f"destination='csv' for {key!r} requires filepath")
-                raise NotImplementedError(
-                    f"destination='csv' for {key!r}: streaming a Gibbs trace to CSV "
-                    "is not ported yet (ROADMAP slice 5, output)"
-                )
+            if opts["destination"] == "csv" and not opts.get("filepath"):
+                raise ValueError(f"destination='csv' for {key!r} requires filepath")
             self._opts[key] = opts
         unknown = set(self.outopts) - set(self.monitor)
         if unknown:
@@ -193,6 +196,9 @@ class GibbsJob:
             self._trace_dtype = getattr(torch, str(self.trace_dtype), None)
             if not isinstance(self._trace_dtype, torch.dtype):
                 raise ValueError(f"unknown trace_dtype {self.trace_dtype!r}")
+        self._csv_keys = [k for k in self.monitor if self._opts[k]["destination"] == "csv"]
+        self._writers: Dict[str, StreamingWriter] = {}
+        self._ring = None
 
     # ---------------------------------------------------------------- sweep
     def _needs_step_hoist(self, spec: Nested) -> bool:
@@ -325,7 +331,8 @@ class GibbsJob:
             for k in diag_keys
         }
         hoisted = self._hoist_step_sizes(values, generator)
-        for i in range(self.mcrange.n_steps):
+        n_steps, ring = self.mcrange.n_steps, self._ring
+        for i in range(n_steps):
             values, diags = self._sweep(values, generator, hoisted)
             if i >= burnin and (i - burnin) % thinning == 0:
                 j = (i - burnin) // thinning
@@ -333,6 +340,13 @@ class GibbsJob:
                     buf[j].copy_(values[k])
                 for k, buf in diag_buffers.items():
                     buf[j].copy_(diags[k])
+                if ring is not None:
+                    ring.save({k: values[k] for k in self._csv_keys})
+            if ring is not None and ((i + 1) % ring.rows == 0 or i + 1 == n_steps):
+                count, host = ring.take()
+                if count:
+                    for k in self._csv_keys:
+                        self._writers[k].append_block(count, {k: host[k]})
         return GibbsChains(
             samples=buffers,
             final_values={k: values[k] for k in self._carry_keys()},
@@ -345,7 +359,10 @@ class GibbsJob:
         missing = [v.key for v in self.model.vertices if v.key not in v0]
         if missing:
             raise ValueError(f"v0 missing values for {missing}")
-        return self._run(generator, v0, prebatched=False)
+        self._open_writers()
+        out = self._run(generator, v0, prebatched=False)
+        self._close_writers()
+        return out
 
     def resume(self, generator, chains: GibbsChains, v0: Dict[str, Any]) -> GibbsChains:
         """Continue for another ``mcrange.n_steps`` sweeps from
@@ -357,7 +374,27 @@ class GibbsJob:
         missing = [v.key for v in self.model.vertices if v.key not in merged]
         if missing:
             raise ValueError(f"resume missing values for {missing}")
-        return self._run(generator, merged, prebatched=True)
+        self._open_writers()
+        out = self._run(generator, merged, prebatched=True)
+        self._close_writers()
+        return out
+
+    def _open_writers(self):
+        """A writer per csv variable and the ring they share, kept across
+        ``run`` and ``resume`` (files reopen in append mode)."""
+        for k in self._csv_keys:
+            if k not in self._writers:
+                opts = self._opts[k]
+                self._writers[k] = StreamingWriter(
+                    opts["filepath"], flush=opts.get("flush", False), sample_fields={k})
+        if self._csv_keys and self._ring is None:
+            self._ring = DrawRing(max(1, min(self.stream_chunk, self.mcrange.n_steps)))
+
+    def _close_writers(self):
+        """Close the files (manifest and sidecars with the final row counts);
+        the writers stay for a later ``run`` or ``resume``."""
+        for w in self._writers.values():
+            w.close()
 
     def to_dot(self) -> str:
         """Graphviz export with update annotations: dependents get

@@ -16,8 +16,14 @@ A univariate target (a (C,) position per step) is lifted to dim 1, so the
 vector-only samplers (AM, RAM, AMWG, slice, SMMALA) run it too, and the
 traces are squeezed back to scalars on output.
 
-Not ported yet: mesh sharding, CSV streaming, ``resume`` and ``verbose``
-progress.
+Output goes to device trace buffers (``destination='nstate'``), to per-field
+CSV files while the run goes on (``'csv'``: saved draws gather in a ring of
+``stream_chunk`` rows on the device, and each chunk that saved a draw
+reaches the host in one copy per field and one host read), or nowhere
+(``'none'``).  With ``verbose`` the loop prints the pooled acceptance rate
+every ``progress_period`` steps, the only host read it adds.
+
+Not ported yet: mesh sharding.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 
 from klara_tpu_torch.core.device import resolve_device
 from klara_tpu_torch.core.target import Target, whiten_target
+from klara_tpu_torch.io.stream import DrawRing, StreamingWriter
 from klara_tpu_torch.jobs.chain import Chain
 from klara_tpu_torch.jobs.gibbs import _as_tensor
 from klara_tpu_torch.jobs.range import MCRange
@@ -174,7 +181,15 @@ class MCJob:
     (ensemble diagonal mass), traj_adaptation / traj_lr / traj_start_frac
     (ChEES), trace_dtype (storage dtype of floating sample traces, e.g.
     'bfloat16'), device (None -> the device of x0 if it is a tensor, else
-    the card; where there is none, an error that names ``device="cpu"``)."""
+    the card; where there is none, an error that names ``device="cpu"``).
+
+    Output: destination ('nstate' device traces, 'csv' files under
+    ``filepath``, 'none' the final state alone), flush (flush the files
+    after every write), stream_chunk (steps per host copy of a csv run),
+    stream_mode ('io_callback' streams during the run; 'post' keeps the
+    device traces and appends them to the files after the run, returning
+    them too), verbose / progress_period (print the pooled acceptance rate
+    every ``progress_period`` steps)."""
 
     target: Target
     sampler: Sampler
@@ -185,6 +200,13 @@ class MCJob:
     diagnostics: Sequence[str] = ("accept",)
     pooled_tuning: bool = False
     step_size: Optional[float] = None
+    destination: str = "nstate"
+    filepath: Optional[str] = None
+    flush: bool = False
+    stream_chunk: int = 128
+    stream_mode: str = "io_callback"
+    verbose: bool = False
+    progress_period: int = 100
     mass_adaptation: bool = False
     mass_period: int = 100
     traj_adaptation: bool = False
@@ -205,11 +227,19 @@ class MCJob:
                 )
             if not self.sampler.dynamic_nleaps:
                 self.sampler = dataclasses.replace(self.sampler, dynamic_nleaps=True)
+        if self.destination not in ("nstate", "csv", "none"):
+            raise ValueError(f"unknown destination {self.destination!r}")
+        if self.destination == "csv" and not self.filepath:
+            raise ValueError("destination='csv' requires filepath")
+        if self.stream_mode not in ("io_callback", "post"):
+            raise ValueError(f"unknown stream_mode {self.stream_mode!r}")
         if self.trace_dtype is not None:
             dt = getattr(torch, str(self.trace_dtype), None)
             if not isinstance(dt, torch.dtype):
                 raise ValueError(f"unknown trace_dtype {self.trace_dtype!r}")
         self._lifted = False
+        self._writer = None
+        self._ring = None
 
     # ------------------------------------------------------------- from model
     @classmethod
@@ -365,10 +395,12 @@ class MCJob:
             and getattr(s, "dynamic_nleaps", False)
         )
 
-    def _loop(self, states, generator, start, stop, adapt, buffers=None):
-        """Steps [start, stop).  With shared ('step') jitter one draw per
-        step scales every chain's λ through a temporary log_traj offset, so
-        all chains run the same leap count."""
+    def _loop(self, states, generator, start, stop, adapt, buffers=None, ring=None):
+        """Steps [start, stop).  Saved draws go to ``buffers`` (device traces)
+        and ``ring`` (a csv stream, handed to the writer after every chunk
+        of ``ring.rows`` steps and at ``stop``).  With shared ('step')
+        jitter one draw per step scales every chain's λ through a temporary
+        log_traj offset, so all chains run the same leap count."""
         sampler, target = self.sampler, self.target
         burnin, thinning = self.mcrange.burnin, self.mcrange.thinning
         shared = self._shared_jitter()
@@ -387,9 +419,31 @@ class MCJob:
                 states = states._replace(log_traj=lt_saved)
             if adapt:
                 states = self.adapt(prev_pos, states, infos, i, frac_shared)
-            if buffers is not None and i >= burnin and (i - burnin) % thinning == 0:
-                self._write(buffers, (i - burnin) // thinning, states, infos)
+            if i >= burnin and (i - burnin) % thinning == 0:
+                if buffers is not None:
+                    self._write(buffers, (i - burnin) // thinning, states, infos)
+                if ring is not None:
+                    ring.save(self._fields(states, infos))
+            if ring is not None and ((i + 1 - start) % ring.rows == 0 or i + 1 == stop):
+                self._writer.append_block(*ring.take())
+            if self.verbose and (i + 1) % self.progress_period == 0:
+                self._report(i, infos)
         return states
+
+    def _report(self, i: int, infos: Info):
+        """The progress line of step ``i``: the pooled acceptance rate, read
+        from the device."""
+        rate = float(infos.accept.to(torch.float32).mean())
+        phase = "burnin " if i < self.mcrange.burnin else "sampling"
+        print(f"[{self.target.name}] {phase} iteration {i + 1}: "
+              f"{100 * rate:.2f} % acceptance rate")
+
+    def _fields(self, states, infos):
+        """{field: (C, ...) value} of the monitored fields, then the
+        diagnostics: one row of a csv stream."""
+        out = {n: _field_value(n, states, infos, self.target) for n in self.monitor}
+        out.update({n: _diag_value(n, states, infos) for n in self.diagnostics})
+        return out
 
     def _write(self, buffers, idx, states, infos):
         samples, diags = buffers
@@ -414,20 +468,59 @@ class MCJob:
     # ------------------------------------------------------------------- run
     def run(self, generator=None, x0=None) -> Chain:
         """Run all ``mcrange.n_steps`` steps, adapting during burnin and
-        saving the post-burnin draws."""
+        saving the post-burnin draws to ``destination``."""
         x0 = self._prepare_x0(generator, x0)
+        self._open_writer()
         self._checkin(x0)
-        states = self._init_states(generator, x0)
+        return self._drive(self._init_states(generator, x0), generator)
+
+    def resume(self, generator, chain: Chain) -> Chain:
+        """Another ``mcrange.n_steps`` steps from ``chain.final_state`` (a live
+        state or one from ``io.load_checkpoint``), burnin and adaptation
+        included, as ``run`` from that state; a csv run appends its draws to
+        the files."""
+        self._open_writer()
+        return self._drive(chain.final_state, generator)
+
+    def _drive(self, states, generator) -> Chain:
         buffers = ({}, {})
-        states = self._loop(states, generator, 0, self.mcrange.n_steps, True, buffers)
-        return self._squeeze(
-            Chain(samples=buffers[0], diagnostics=buffers[1], final_state=states))
+        keep = self.destination == "nstate" or self._buffered_csv
+        states = self._loop(states, generator, 0, self.mcrange.n_steps, True,
+                            buffers if keep else None, self._ring)
+        chain = Chain(samples=buffers[0], diagnostics=buffers[1], final_state=states)
+        return self._squeeze(self._finish_output(chain))
+
+    @property
+    def _buffered_csv(self) -> bool:
+        return self.destination == "csv" and self.stream_mode == "post"
+
+    def _open_writer(self):
+        """The csv stream's writer and ring, kept across ``run`` and
+        ``resume`` (files reopen in append mode)."""
+        if self.destination == "csv" and self.stream_mode == "io_callback" and self._writer is None:
+            self._writer = StreamingWriter(self.filepath, flush=self.flush,
+                                           sample_fields=set(self.monitor))
+            self._ring = DrawRing(max(1, min(self.stream_chunk, self.mcrange.n_steps)))
+
+    def _finish_output(self, chain: Chain) -> Chain:
+        """Close the stream's files (manifest and sidecars with the final row
+        counts), or with ``stream_mode='post'`` append the device traces to
+        them."""
+        if self._writer is not None:
+            self._writer.close()
+        elif self._buffered_csv:
+            with StreamingWriter(self.filepath, sample_fields=set(self.monitor)) as w:
+                w.append_block(self.mcrange.n_post, {**chain.samples, **chain.diagnostics})
+        return chain
 
     def run_phased(self, generator=None, x0=None):
         """Warmup (init + burnin steps with adaptation, then the tuner's
         finalize) and sampling (no adaptation code) timed apart.  Returns
         ``(chain, {'warmup_seconds', 'sampling_seconds'})``; on a CUDA device
-        each phase ends in a synchronise."""
+        each phase ends in a synchronise.  Output to 'nstate' or 'none' only:
+        ``run`` streams csv."""
+        if self.destination == "csv":
+            raise ValueError("run_phased supports destination 'nstate'/'none' only")
         x0 = self._prepare_x0(generator, x0)
         self._checkin(x0)
         device = x0.device
@@ -442,7 +535,8 @@ class MCJob:
         _sync(device)
         t1 = time.perf_counter()
         buffers = ({}, {})
-        states = self._loop(states, generator, burnin, self.mcrange.n_steps, False, buffers)
+        states = self._loop(states, generator, burnin, self.mcrange.n_steps, False,
+                            buffers if self.destination == "nstate" else None)
         _sync(device)
         t2 = time.perf_counter()
         chain = self._squeeze(
@@ -472,6 +566,8 @@ class MCJob:
                 "run_preconditioned requires monitor=('value',); other "
                 "fields are not back-transformed from the whitened space"
             )
+        if self.destination != "nstate":
+            raise ValueError("run_preconditioned requires destination='nstate'")
         if self.n_chains < 2:
             raise ValueError(
                 "run_preconditioned needs an ensemble (n_chains >= 2; "

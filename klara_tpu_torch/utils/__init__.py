@@ -1,0 +1,3 @@
+from klara_tpu_torch.utils.profiling import trace_profile
+
+__all__ = ["trace_profile"]

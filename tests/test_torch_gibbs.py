@@ -330,12 +330,16 @@ def _single():
 
 @pytest.mark.parametrize("case", ["csv", "csv_no_path", "bogus", "unmonitored", "setprior",
                                   "unknown_key"])
-def test_gibbs_job_validation_errors(case):
+def test_gibbs_job_validation_errors(case, tmp_path):
     rng = kt.MCRange(n_steps=10)
-    if case == "csv":  # not ported: raising beats dropping the trace
-        with pytest.raises(NotImplementedError, match="CSV"):
-            kt.GibbsJob(_single(), {}, rng, outopts={"p": {"destination": "csv",
-                                                           "filepath": "out"}})
+    if case == "csv":  # a csv variable with a filepath builds and streams
+        out = str(tmp_path / "p")
+        job = kt.GibbsJob(_single(), {}, kt.MCRange(n_steps=5), n_chains=3, device="cpu",
+                          outopts={"p": {"destination": "csv", "filepath": out}})
+        chains = job.run(torch.Generator().manual_seed(0), {"p": 0.0})
+        assert chains.samples == {}
+        back = kt.io.read_chain(out, device="cpu")
+        assert back["p"].shape == (5, 3) and bool(torch.isfinite(back["p"]).all())
     elif case == "csv_no_path":
         with pytest.raises(ValueError, match="filepath"):
             kt.GibbsJob(_single(), {}, rng, outopts={"p": {"destination": "csv"}})
