@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch port (klara_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                # phases 1-23
+    python3 chip_smoke.py                # phases 1-24
     python3 chip_smoke.py --zoo-only     # phases 1-4 and 12-20 (the sampler zoo)
     python3 chip_smoke.py --io-only      # phases 1-4 and 21-23 (the output layer)
+    python3 chip_smoke.py --examples-only  # phases 1-3 and 24 (seven examples)
     python3 chip_smoke.py --profile DIR  # also profile stage 2 of both logreg rows and the Gibbs sweep
     python3 chip_smoke.py --stage1-sensitivity  # only: stage 1 with K1 and with the plain version, three seeds
 
@@ -113,7 +114,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    traces, then ``resume``, beside an all-nstate twin of the same seed: the
    csv variables read back (two appended segments) and the nstate ones must
    equal the twin's, the stream must add one host read per chunk, and K1
-   must not launch.
+   must not launch;
+24. run seven examples of the port's registry (``examples_torch/
+   run_examples.py``) at the JAX package's sizes: ``poisson_mh``,
+   ``gamma_mh_truncation``, ``t_slice``, ``swiss_mala_analytical``,
+   ``swiss_hmc_analytical``, ``bivariate_normal_gibbs`` and ``rats_gibbs``.
+   Those that assert nothing of their own are held to the truth: the
+   Poisson mean 6 and the Gamma(2, 1) mean and variance (both correction
+   styles) within 5 MCSE, the int32 trace on its support, the bivariate
+   correlation 0.8 ± 0.05 and means 0 within 5 MCSE, the BUGS rats means.
+   The two swiss rows launch K1 at C=64, D=4, N=200; K1 is held against its
+   plain version on their final positions and timed there (CUDA events)
+   beside its plain version, its bound and the launch floor (one
+   elementwise op on one value).
 
 The Gibbs paths launch no K1 (their sweep is plain torch ops in both
 packages); the kernels line records their K1 count, 0.  The output layer
@@ -233,6 +246,13 @@ IO_BURNIN, IO_POST, IO_CHUNK, IO_SEED = 100, 64, 16, 11
 IO_VERBOSE_STEPS, IO_PERIOD = 50, 25
 IO_GIBBS_SWEEPS, IO_GIBBS_BURNIN, IO_GIBBS_CHUNK = 500, 100, 128
 IO_GIBBS_CSV = ("alpha_c", "sigma2_c")
+# phase 24: seven examples of the port's registry at the JAX package's sizes (168-286 s on
+# the H100, gamma_mh_truncation 117-201 s of it: 2 x 20000 MH steps of ~165-270 host-issued ops);
+# the two swiss rows launch K1 at C=64, D=4, N=200
+SMOKE_EXAMPLES = ("poisson_mh", "gamma_mh_truncation", "t_slice", "swiss_mala_analytical",
+                  "swiss_hmc_analytical", "bivariate_normal_gibbs", "rats_gibbs")
+K1_EXAMPLES = ("swiss_mala_analytical", "swiss_hmc_analytical")
+POISSON_LAM, GAMMA_MOMENTS, BIV_RHO, BIV_RHO_WIDTH = 6.0, (2.0, 2.0), 0.8, 0.05
 
 
 def _card_line() -> str:
@@ -1798,6 +1818,107 @@ def run_io_gibbs(tmp, device="cuda", chains=GIBBS_CHAINS, sweeps=IO_GIBBS_SWEEPS
     return res
 
 
+# ------------------------------------------------------------- the examples
+def _mean_mcse(x):
+    """Pooled mean of a (draws, chains) trace and its Monte Carlo standard
+    error, sd over the chain-summed ESS."""
+    import klara_tpu_torch as kt
+
+    x = x.to(torch.float32).reshape(x.shape[0], x.shape[1])
+    return float(x.mean()), float(x.std() / kt.stats.ess(x).sqrt())
+
+
+def _held(name, value, want, width):
+    if not abs(value - want) <= width:
+        raise RuntimeError(f"example {name}: {value} is not {want} ± {width}")
+    return {"value": value, "want": want, "width": width}
+
+
+def check_example_output(name, out, device="cuda"):
+    """Phase 24's truth for the examples whose ``main()`` asserts nothing
+    (as in the JAX package): Poisson mean λ and Gamma(2, 1) mean and
+    variance within 5 MCSE, the bivariate Gibbs correlation 0.8 ± 0.05 and
+    means within 5 MCSE of 0, the rats means against BUGS.  Every trace
+    must live on ``device``.  The registry's other examples assert
+    themselves."""
+    traces = ([c["value"] for c in out.values()] if isinstance(out, dict)
+              else list(out.samples.values()))
+    where = {t.device.type for t in traces}
+    if where != {torch.device(device).type}:
+        raise RuntimeError(f"example {name}: traces on {where}, not {device}")
+    got = {}
+    if name == "poisson_mh":
+        x = out["value"]
+        if x.dtype != torch.int32 or int(x.min()) < 0:
+            raise RuntimeError(f"poisson_mh: trace {x.dtype}, min {int(x.min())}")
+        m, se = _mean_mcse(x)
+        got["mean"] = _held(name, m, POISSON_LAM, 5 * se)
+    elif name == "gamma_mh_truncation":
+        mean, var = GAMMA_MOMENTS
+        for label, chain in out.items():
+            x = chain["value"]
+            m, se = _mean_mcse(x)
+            v, se_v = _mean_mcse(torch.square(x - x.mean()))
+            got[label] = {"mean": _held(name, m, mean, 5 * se),
+                          "var": _held(name, v, var, 5 * se_v),
+                          "acceptance": float(chain["accept"].to(torch.float32).mean())}
+    elif name == "bivariate_normal_gibbs":
+        x1, x2 = out["p1"].to(torch.float32), out["p2"].to(torch.float32)
+        corr = float(torch.corrcoef(torch.stack([x1.reshape(-1), x2.reshape(-1)]))[0, 1])
+        got["corr"] = _held(name, corr, BIV_RHO, BIV_RHO_WIDTH)
+        for k, x in (("p1", x1), ("p2", x2)):
+            m, se = _mean_mcse(x)
+            got[k] = _held(name, m, 0.0, 5 * se)
+    elif name == "rats_gibbs":
+        for k, (want, width) in BUGS_MEANS.items():
+            got[k] = _held(name, float(out[k].to(torch.float32).mean()), want, width)
+    return got
+
+
+def run_examples(device="cuda", names=SMOKE_EXAMPLES):
+    """Phase 24: ``names`` through the port's example registry at the JAX
+    package's sizes, each example's K1 launches counted from 0; then K1
+    against its plain version on the swiss rows' final positions (C=64,
+    D=4, N=200), and timed there beside its plain version, its bound and
+    the launch floor (one elementwise op on one value)."""
+    from examples_torch.run_examples import build_registry
+    from klara_tpu_torch.models.examples import swiss_logistic_regression
+    from klara_tpu_torch.ops import logreg
+
+    registry, errors = build_registry()
+    if errors:
+        raise RuntimeError(f"example registry import errors: {errors}")
+    res, finals, t_phase = {}, {}, time.perf_counter()
+    for name in names:
+        logreg.KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        out = registry[name](device=device)
+        _sync(device)
+        secs = time.perf_counter() - t0
+        res[name] = {"seconds": secs, "k1_launches": logreg.KERNEL_LAUNCHES,
+                     "truth": check_example_output(name, out, device)}
+        if name in K1_EXAMPLES:
+            finals[name] = out.final_state.position
+        print(f"# example {name}: {json.dumps(res[name])}", flush=True)
+    _, X, y = swiss_logistic_regression(device=device)
+    for name, P in finals.items():
+        res[name]["k1_max_abs_err_on_path"] = _k1_error(P.contiguous(), X, y)
+    P = finals[K1_EXAMPLES[0]].contiguous()
+    v = (X.T @ y).contiguous()
+    prep = logreg.prepare_x(X, y)
+    one = torch.zeros(1, device=device)
+    C, D = P.shape
+    bound_ms, bound_by = k1_bound_ms(C, D, X.shape[0])
+    k1 = {"shape": [C, D, X.shape[0]],
+          "ms": _time_ms(lambda: logreg.logreg_value_grad(P, X, v, 100.0, prepared=prep)),
+          "plain_ms": _time_ms(lambda: logreg.logreg_value_grad_reference(P, X, v, 100.0)),
+          "bound_ms": bound_ms, "bound_by": bound_by,
+          "launch_floor_ms": _time_ms(lambda: one.add_(1.0))}
+    summary = {"seconds": time.perf_counter() - t_phase, "k1_swiss": k1}
+    print(f"# examples phase: {json.dumps(summary)}", flush=True)
+    return res, summary
+
+
 def run_io(x_end):
     """Phases 21-23 in one temporary directory, removed at the end."""
     tmp = tempfile.mkdtemp(prefix="klara_io_")
@@ -1837,6 +1958,10 @@ def main():
         stage1_sensitivity()
         print(card)
         return
+    if "--examples-only" in sys.argv:
+        run_examples()
+        print(card)
+        return
     profile_dir = sys.argv[sys.argv.index("--profile") + 1] if "--profile" in sys.argv else None
     chees, chees_summary, chees_end, x_end = run_main_path()
     if profile_dir:
@@ -1868,6 +1993,7 @@ def main():
     slots = check_monitor_slots()
     io_stream, io_resume, io_gibbs = run_io(x_end)
     del x_end
+    examples, ex_summary = run_examples()
 
     by_path = {"chees_precond": chees["k1_launches"], "nuts_precond": nuts["k1_launches"],
                "nuts_looped": looped["k1_launches"], "nuts": raw["k1_launches"],
@@ -1876,7 +2002,8 @@ def main():
                "zoo_smmala": zoo["smmala"]["k1_launches"],
                "monitor_slots": slots["k1_launches"],
                "io_stream_mala": io_stream["k1_launches"],
-               "io_resume_mala": io_resume["k1_launches"]}
+               "io_resume_mala": io_resume["k1_launches"],
+               **{f"ex_{k}": examples[k]["k1_launches"] for k in K1_EXAMPLES}}
     for path, n in by_path.items():
         if n <= 0:
             raise RuntimeError(f"the {path} path launched no K1 kernel")
@@ -1884,7 +2011,9 @@ def main():
     # RAM, AM, AMWG, slice and ARS evaluate logdensity_fn alone, as in the JAX package
     by_path.update(gibbs_rats=gibbs["k1_launches"], gibbs_rats_nested=nested["k1_launches"],
                    **{f"zoo_{k}": zoo[k]["k1_launches"] for k in ("ram", "am", "amwg", "slice")},
-                   zoo_ars=ars["k1_launches"], io_gibbs_csv=io_gibbs["k1_launches"])
+                   zoo_ars=ars["k1_launches"], io_gibbs_csv=io_gibbs["k1_launches"],
+                   **{f"ex_{k}": v["k1_launches"] for k, v in examples.items()
+                      if k not in K1_EXAMPLES})
     err_by_path = {"chees_precond": chees["k1_max_abs_err_on_path"],
                    "nuts_precond": nuts["k1_max_abs_err_on_path"],
                    "nuts_looped": looped["k1_max_abs_err_on_path"],
@@ -1892,7 +2021,8 @@ def main():
                    **{f"zoo_{k}": zoo[k]["k1_max_abs_err_on_path"]
                       for k in ("mala", "mala_16384", "smmala")},
                    "io_stream_mala": io_stream["k1_max_abs_err_on_path"],
-                   "io_resume_mala": io_resume["k1_max_abs_err_on_path"]}
+                   "io_resume_mala": io_resume["k1_max_abs_err_on_path"],
+                   **{f"ex_{k}": examples[k]["k1_max_abs_err_on_path"] for k in K1_EXAMPLES}}
     # 3 TF32 passes x 2 products x 2*C*N*D operations over 495 TFLOP/s: 0.041 ms at the
     # main shape; the 13.6 MB of compulsory traffic would take 0.004 ms
     bound_ms, bound_by = k1_bound_ms(CHAINS, DIM, N_DATA)
@@ -1917,6 +2047,11 @@ def main():
         "plain_ms_c4096": mid["plain_ms"],
         "bound_ms_c4096": k1_bound_ms(SMALL_CHAINS, DIM, N_DATA)[0],
         "ms_single_pass": big["single_pass"]["ms"],
+        # the swiss examples' shape (phase 24): D=4 pads to 104 inside the kernel
+        "ms_c64_d4_n200": ex_summary["k1_swiss"]["ms"],
+        "plain_ms_c64_d4_n200": ex_summary["k1_swiss"]["plain_ms"],
+        "bound_ms_c64_d4_n200": ex_summary["k1_swiss"]["bound_ms"],
+        "launch_floor_ms": ex_summary["k1_swiss"]["launch_floor_ms"],
     }]}
     print(json.dumps(kernels))
     print(card)

@@ -41,7 +41,7 @@ from klara_tpu_torch.tuners import (
     RobertsRosenthalTuner,
     VanillaTuner,
 )
-from klara_tpu_torch import distributions, io, stats
+from klara_tpu_torch import data, distributions, io, stats
 
 __version__ = "0.1.0"
 
@@ -79,6 +79,7 @@ __all__ = [
     "AcceptanceRateTuner",
     "DualAveragingTuner",
     "RobertsRosenthalTuner",
+    "data",
     "distributions",
     "io",
     "stats",

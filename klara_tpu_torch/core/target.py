@@ -28,6 +28,11 @@ import torch
 LogDensityFn = Callable[..., torch.Tensor]
 
 
+def chain_sum(lp):
+    """Sum a per-element log-density over every axis but the chains axis."""
+    return lp.reshape(lp.shape[0], -1).sum(-1) if lp.dim() > 1 else lp
+
+
 def _reverse_value_and_grad(fn, x):
     with torch.enable_grad():
         xr = x.detach().requires_grad_(True)
@@ -94,11 +99,12 @@ class Target:
 
     @classmethod
     def from_distribution(cls, dist, dim=None, **kwargs):
-        """Target backed by an object with a per-coordinate ``logpdf``,
-        summed over the event axis."""
+        """Target backed by an object with a ``logpdf``, summed per chain:
+        over the coordinates of a univariate one, as it is for a
+        multivariate one (MvNormal's logpdf is already (C,))."""
         if dim is None:
             dim = getattr(dist, "dim", None)
-        return cls(logdensity_fn=lambda x: dist.logpdf(x).sum(-1), dim=dim, **kwargs)
+        return cls(logdensity_fn=lambda x: chain_sum(dist.logpdf(x)), dim=dim, **kwargs)
 
     def logdensity(self, x):
         return self.logdensity_fn(x)
@@ -112,7 +118,7 @@ class Target:
         if self.logprior_fn is not None:
             return self.logprior_fn(x)
         if self.prior is not None:
-            return self.prior.logpdf(x).sum(-1)
+            return chain_sum(self.prior.logpdf(x))
         raise ValueError("target has no logprior decomposition")
 
     def sample_prior(self, generator, n_chains: int):
@@ -160,7 +166,7 @@ class Target:
         if self.logprior_fn is not None:
             return self.logprior_fn
         if self.prior is not None:
-            return lambda x: self.prior.logpdf(x).sum(-1)
+            return lambda x: chain_sum(self.prior.logpdf(x))
         raise ValueError("target has no logprior decomposition")
 
     def _ad_grad(self, fn, x):

@@ -1,7 +1,7 @@
-"""Bundled example datasets (counterpart of klara_tpu/data): ``swiss``
+"""Bundled example datasets (counterpart of the JAX package's data module): ``swiss``
 (200×4 banknote measurements and 200 status labels) and ``rats`` (5 ages,
-30 rats' weights).  The .npz files ship with the JAX package and are read
-from there by path; nothing of that package is imported."""
+30 rats' weights), stored as .npz under ``files/``, and the list of the
+runnable examples under ``examples_torch/``."""
 
 from __future__ import annotations
 
@@ -9,9 +9,10 @@ import os
 
 import numpy as np
 
-FILES = os.path.join(
+FILES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "files")
+EXAMPLES = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "klara_tpu", "data", "files",
+    "examples_torch",
 )
 
 _MANIFEST = {
@@ -19,10 +20,23 @@ _MANIFEST = {
     "rats": ("rats.npz", ("age", "weight")),
 }
 
+__all__ = ["dataset", "datasets", "examples"]
+
 
 def datasets():
     """The available dataset names."""
     return sorted(_MANIFEST)
+
+
+def examples():
+    """The runnable examples' names (the modules of ``examples_torch/``
+    but its runner and package file); empty where the directory is absent."""
+    if not os.path.isdir(EXAMPLES):
+        return []
+    return sorted(
+        f[:-3] for f in os.listdir(EXAMPLES)
+        if f.endswith(".py") and f != "run_examples.py" and not f.startswith("_")
+    )
 
 
 def dataset(name: str, *fields: str):

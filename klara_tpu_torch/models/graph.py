@@ -13,6 +13,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
+from klara_tpu_torch.core.target import chain_sum
+
 
 @dataclasses.dataclass(frozen=True)
 class Variable:
@@ -54,11 +56,6 @@ class Transformation(Variable):
 
     dotshape = "polygon"
     is_dependent = True
-
-
-def chain_sum(lp):
-    """Sum a per-element log-density over every axis but the chains axis."""
-    return lp.reshape(lp.shape[0], -1).sum(-1) if lp.dim() > 1 else lp
 
 
 @dataclasses.dataclass(frozen=True)
