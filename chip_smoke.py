@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port (klara_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                # phases 1-24
+    python3 chip_smoke.py                # phases 1-26
+    python3 chip_smoke.py --parallel-only  # phases 1-4 and 25-26 (meshes)
     python3 chip_smoke.py --zoo-only     # phases 1-4 and 12-20 (the sampler zoo)
     python3 chip_smoke.py --io-only      # phases 1-4 and 21-23 (the output layer)
     python3 chip_smoke.py --examples-only  # phases 1-3 and 24 (seven examples)
@@ -126,7 +127,30 @@ Phases, each of which raises on failure (the script then exits non-zero):
    The two swiss rows launch K1 at C=64, D=4, N=200; K1 is held against its
    plain version on their final positions and timed there (CUDA events)
    beside its plain version, its bound and the launch floor (one
-   elementwise op on one value).
+   elementwise op on one value);
+25. run the main path of phase 4 again on ``chain_mesh()``, a one-rank NCCL
+   chains mesh of this process's own: hold its final positions, final step
+   size, stage 1's adapted step and trajectory length, the Cholesky factor
+   and the bf16 trace's bit sums per draw to phase 4's bit for bit, and its
+   K1 launches to phase 4's; count the NCCL all-reduces of its adaptation
+   (``parallel.mesh.COLLECTIVES``); run 5 static NUTS steps with pooled
+   dual averaging through the meshed job's loop under
+   ``torch.cuda.set_sync_debug_mode("error")`` (2 all-reduces a step, no
+   host read); run ``examples_torch/multichip_scaling.py`` at its width
+   (16384 chains, NUTS(max_doublings=6), pooled dual averaging; depth
+   ``MULTICHIP_BURNIN`` + ``MULTICHIP_POST``) and print its draws/s and
+   min ESS; destroy the group;
+26. spawn two processes of this script (``--rank-worker``) on cuda:0 joined
+   by gloo (NCCL refuses two ranks on one card): MALA on the bench target
+   at 4096 chains, 2048 a rank, and the conjugate rats ``GibbsJob`` at 4096
+   chains x 500 sweeps, each held bit for bit to this process's run of the
+   same seed without a mesh; ``param_sharded_logreg_target`` on
+   ``mesh2d(1, 2)`` at 4096 x 100 x 1024 held to K1 on the full X (phase-3
+   tolerances) and run under HMC with per-chain leap counts (50 + 100
+   steps; acceptance above 0.3, both ranks' ``stats.mean`` and
+   ``stats.acceptance`` equal); time K1 at 8192 chains, a rank's share of
+   the main path on two ranks.  Both processes are stopped before the phase
+   ends.
 
 The Gibbs paths launch no K1 (their sweep is plain torch ops in both
 packages); the kernels line records their K1 count, 0.  The output layer
@@ -253,6 +277,16 @@ SMOKE_EXAMPLES = ("poisson_mh", "gamma_mh_truncation", "t_slice", "swiss_mala_an
                   "swiss_hmc_analytical", "bivariate_normal_gibbs", "rats_gibbs")
 K1_EXAMPLES = ("swiss_mala_analytical", "swiss_hmc_analytical")
 POISSON_LAM, GAMMA_MOMENTS, BIV_RHO, BIV_RHO_WIDTH = 6.0, (2.0, 2.0), 0.8, 0.05
+# phase 25: examples_torch/multichip_scaling.py at its full width (16384 chains,
+# NUTS(max_doublings=6)), depth cut from 200 + 300 steps to 50 + 100
+MULTICHIP_BURNIN, MULTICHIP_POST = 50, 100
+# phase 26: two ranks on one card.  MALA on the bench target (fixed step, no
+# tuning), the conjugate rats model (phase 23's depth), and HMC with per-chain
+# leap counts (trajectory length jittered per chain) on the param-sharded target
+P26_CHAINS, P26_MALA_STEP, P26_BURNIN, P26_POST = 4096, 0.005, 50, 100
+P26_SWEEPS = IO_GIBBS_SWEEPS
+P26_HMC_LAMBDA, P26_HMC_BURNIN, P26_HMC_POST = 0.05, 50, 100
+P26_TIMEOUT = 600
 
 
 def _card_line() -> str:
@@ -424,7 +458,7 @@ def _rhat_max(values, chol, max_draws=512, dim_chunk=16, chains_cap=2048, over_t
     )
 
 
-def _stage1_job(target, chains, dim, burnin, post):
+def _stage1_job(target, chains, dim, burnin, post, mesh=None):
     """The chees_precond / nuts_precond job: stage-1 ChEES HMC settings of
     bench.py, trace in bf16 past 4e9 bytes."""
     import klara_tpu_torch as kt
@@ -437,7 +471,7 @@ def _stage1_job(target, chains, dim, burnin, post):
         tuner=kt.DualAveragingTuner(0.8, burnin), n_chains=chains,
         monitor=("value",), diagnostics=("accept", "nleaps"), pooled_tuning=True,
         mass_adaptation=True, mass_period=50, trace_dtype=trace_dtype,
-        traj_adaptation=True,
+        traj_adaptation=True, mesh=mesh,
     )
 
 
@@ -471,25 +505,49 @@ def _check_launches(path, got, allowance=LAUNCH_ALLOWANCE):
                            f"earlier design's {want}")
 
 
+def _trace_bits(values, chunk=64):
+    """Per draw, the sum of the trace's raw bits (bf16 or f32 read as
+    integers), int64: a checksum that any changed bit moves."""
+    ints = torch.int16 if values.element_size() == 2 else torch.int32
+    out = torch.empty(values.shape[0], dtype=torch.int64, device=values.device)
+    for s in range(0, values.shape[0], chunk):
+        out[s:s + chunk] = values[s:s + chunk].view(ints).flatten(1).sum(1, dtype=torch.int64)
+    return out
+
+
+def _fingerprint(chain, info):
+    """What phase 25 holds phase 4 to, bit for bit: the final positions, the
+    final step size, stage 1's adapted step and trajectory length, the
+    Cholesky factor and the trace's checksum per draw."""
+    end, s1 = chain.final_state, info["stage1_state"]
+    return {"position": end.position.clone(), "eps": end.tune.step.clone(),
+            "stage1_eps": s1.tune.step.clone(), "stage1_log_traj": s1.log_traj.clone(),
+            "chol": info["chol"].clone(), "trace_bits": _trace_bits(chain.value)}
+
+
 def run_main_path(device="cuda", chains=CHAINS, dim=DIM, n_data=N_DATA, burnin=BURNIN,
-                  post=POST):
-    """chees_precond at bench size through the port's public entry points;
-    returns its results, the x-space (mean, sd, ESS) per dim and what
-    ``profile_chees`` starts from (stage 2's job, final state, generator) and
-    the final positions in x space (stationary draws, the zoo's start)."""
+                  post=POST, mesh=None):
+    """chees_precond at bench size through the port's public entry points
+    (on ``mesh`` if given: phase 25); returns its results, the x-space
+    (mean, sd, ESS) per dim (None on a mesh, whose run phase 25 holds to
+    phase 4's bit for bit), what ``profile_chees`` starts from (stage 2's
+    job, final state, generator), the final positions in x space
+    (stationary draws, the zoo's start) and the run's ``_fingerprint``."""
     import klara_tpu_torch as kt
     from klara_tpu_torch.models.examples import synthetic_logistic_regression
     from klara_tpu_torch.ops import logreg
+    from klara_tpu_torch.parallel.mesh import COLLECTIVES
 
     target, X, y = synthetic_logistic_regression(dim=dim, n_data=n_data, device=device)
     stage2_start = []
     s2 = _marked(kt.HMC, stage2_start)(leapstep=0.05, nleaps=8, trajectory_length=2.0,
                                        jitter=0.9, jitter_style="step", max_nleaps=64)
-    job = _stage1_job(target, chains, dim, burnin, post)
+    job = _stage1_job(target, chains, dim, burnin, post, mesh)
     gen = torch.Generator(device=device).manual_seed(42)
     x0 = 0.1 * torch.randn(chains, dim, generator=gen, device=device)
 
     logreg.KERNEL_LAUNCHES = 0
+    reduces0 = COLLECTIVES["all_reduce"]
     t0 = time.perf_counter()
     chain, timings, info = job.run_preconditioned(
         gen, x0, stage2_replace=dict(sampler=s2, traj_adaptation=False),
@@ -499,24 +557,20 @@ def run_main_path(device="cuda", chains=CHAINS, dim=DIM, n_data=N_DATA, burnin=B
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = logreg.KERNEL_LAUNCHES
+    reduces = COLLECTIVES["all_reduce"] - reduces0
 
     values, chol = chain.value, info["chol"]
     if tuple(values.shape) != (post, chains, dim):
         raise RuntimeError(f"trace shape {tuple(values.shape)}")
     if not bool(torch.isfinite(values).all()):
         raise RuntimeError("non-finite draws in the trace")
-    summary = _x_summary(values, chol, _chunk(post, dim))
-    min_ess = float(summary[2].min())
-    rhat = _rhat_max(values, chol)
+    fingerprint = _fingerprint(chain, info)
     accept = float(kt.stats.acceptance(chain))
     leaps = float(chain["nleaps"].to(torch.float64).mean())
     res = {
         "warmup_seconds": timings["warmup_seconds"],
         "sampling_seconds": timings["sampling_seconds"],
         "wall_seconds": wall,
-        "min_ess": min_ess,
-        "ess_per_sec": min_ess / timings["sampling_seconds"],
-        "rhat_max": rhat,
         "acceptance": accept,
         "leaps_per_draw": leaps,
         "eps_final": float(chain.final_state.tune.step.mean()),
@@ -528,6 +582,18 @@ def run_main_path(device="cuda", chains=CHAINS, dim=DIM, n_data=N_DATA, burnin=B
         "k1_max_abs_err_on_path": _k1_error(
             (chain.final_state.position @ chol.T).contiguous(), X, y),
     }
+    x_end = (chain.final_state.position @ chol.T).contiguous()
+    if mesh is not None:
+        # two stages of burnin adapt; sampling runs no reduction
+        res.update(all_reduces=reduces, all_reduces_per_adapting_step=reduces / (2 * burnin))
+        print(f"# chees_precond {chains}x{dim}x{n_data} on a one-rank chains mesh "
+              f"({torch.distributed.get_backend()}): {json.dumps(res)}", flush=True)
+        return res, None, (info["whitened_job"], chain.final_state, gen), x_end, fingerprint
+    summary = _x_summary(values, chol, _chunk(post, dim))
+    min_ess = float(summary[2].min())
+    rhat = _rhat_max(values, chol)
+    res.update(min_ess=min_ess, ess_per_sec=min_ess / timings["sampling_seconds"],
+               rhat_max=rhat)
     print(f"# chees_precond {chains}x{dim}x{n_data}: {json.dumps(res)}", flush=True)
     if rhat > RHAT_GATE:
         raise RuntimeError(f"rank-R-hat {rhat} > {RHAT_GATE}")
@@ -536,8 +602,7 @@ def run_main_path(device="cuda", chains=CHAINS, dim=DIM, n_data=N_DATA, burnin=B
     if (chains, dim, n_data, burnin, post) == (CHAINS, DIM, N_DATA, BURNIN, POST):
         _check_launches("stage1", res["k1_launches_stage1"], STAGE1_ALLOWANCE)
         _check_launches("chees_stage2", res["k1_launches_stage2"])
-    x_end = (chain.final_state.position @ chol.T).contiguous()
-    return res, summary, (info["whitened_job"], chain.final_state, gen), x_end
+    return res, summary, (info["whitened_job"], chain.final_state, gen), x_end, fingerprint
 
 
 def stage1_sensitivity(device="cuda", chains=CHAINS, dim=DIM, n_data=N_DATA, burnin=BURNIN):
@@ -1919,6 +1984,272 @@ def run_examples(device="cuda", names=SMOKE_EXAMPLES):
     return res, summary
 
 
+# ------------------------------------------------------- phases 25-26: meshes
+def _same_bits(name, a, b):
+    if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
+        raise RuntimeError(f"{name}: the meshed run differs from the run without a mesh")
+
+
+def check_meshed_no_host_read(wjob, state, gen, n_steps=5):
+    """Phase 25: ``n_steps`` static-tree NUTS steps through the meshed job's
+    own loop, pooled dual averaging included, under sync debug mode
+    'error': the NCCL all-reduces of the pooled statistics add no host read.
+    Returns the all-reduces counted in the window."""
+    import dataclasses
+
+    import klara_tpu_torch as kt
+    from klara_tpu_torch.parallel.mesh import COLLECTIVES, chain_context
+
+    job = dataclasses.replace(wjob, sampler=kt.NUTS(max_doublings=3), traj_adaptation=False)
+    with chain_context(job._block):
+        nuts = job._init_states(gen, state.position)
+    torch.cuda.synchronize()
+    before = COLLECTIVES["all_reduce"]
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with chain_context(job._block):
+            nuts = job._loop(nuts, gen, 0, n_steps, True)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    torch.cuda.synchronize()
+    reduces = COLLECTIVES["all_reduce"] - before
+    if not bool(torch.isfinite(nuts.position).all()):
+        raise RuntimeError("non-finite positions after the meshed sync-checked steps")
+    if reduces != 2 * n_steps:
+        raise RuntimeError(f"{reduces} all-reduces in {n_steps} pooled steps, expected "
+                           f"{2 * n_steps}")
+    print(f"# meshed static NUTS: {n_steps} pooled steps, {reduces} NCCL all-reduces, "
+          "no host read", flush=True)
+    return reduces
+
+
+def _all_reduce_ms(mesh, n=1000):
+    """Wall time of one all-reduce of a one-value tensor over the mesh's
+    chains group, the unit of every cross-chain reduction: ``n`` calls, then
+    a synchronise."""
+    from klara_tpu_torch.parallel.mesh import all_reduce
+
+    group = mesh.get_group(0)
+    t = torch.zeros((), device=mesh.device_type)
+    all_reduce(t, group)
+    _sync(mesh.device_type)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        all_reduce(t, group)
+    _sync(mesh.device_type)
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def run_meshed_main_path(phase4, phase4_fingerprint, device="cuda", **sizes):
+    """Phase 25: the main path again on a one-rank NCCL chains mesh, held to
+    phase 4 bit for bit; five pooled static NUTS steps on the mesh under
+    sync debug mode 'error'; ``examples_torch/multichip_scaling.py`` at
+    its full width, cut in depth.  ``sizes`` go to ``run_main_path``.
+    Destroys its process group."""
+    import torch.distributed as dist
+
+    from examples_torch import multichip_scaling
+    from klara_tpu_torch.ops import logreg
+    from klara_tpu_torch.parallel import chain_mesh
+
+    t_phase = time.perf_counter()
+    mesh = chain_mesh(device=None if device == "cuda" else device)
+    if dist.get_backend() != ("nccl" if device == "cuda" else "gloo") or mesh.size() != 1:
+        raise RuntimeError(f"phase 25 wants a one-rank NCCL mesh, got {dist.get_backend()} "
+                           f"over {mesh.size()} ranks")
+    try:
+        res, _, (wjob, state, gen), _, fingerprint = run_main_path(device, mesh=mesh, **sizes)
+        for key, want in phase4_fingerprint.items():
+            _same_bits(f"chees_precond {key}", fingerprint[key], want)
+        if res["k1_launches"] != phase4["k1_launches"]:
+            raise RuntimeError(f"the meshed main path launched K1 {res['k1_launches']} times, "
+                               f"phase 4 {phase4['k1_launches']}")
+        res["sync_checked_all_reduces"] = check_meshed_no_host_read(wjob, state, gen)
+        del wjob, state
+        res["all_reduce_ms"] = _all_reduce_ms(mesh)
+        res["torch"] = f"{torch.__version__} (CUDA {torch.version.cuda})"
+        logreg.KERNEL_LAUNCHES = 0
+        scaling = multichip_scaling.main(n_chains=sizes.get("chains", CHAINS),
+                                         n_steps=MULTICHIP_BURNIN + MULTICHIP_POST,
+                                         burnin=MULTICHIP_BURNIN, device=device)
+        scaling["k1_launches"] = logreg.KERNEL_LAUNCHES
+        res["multichip_scaling"] = scaling
+    finally:
+        dist.destroy_process_group()
+    res["phase_seconds"] = time.perf_counter() - t_phase
+    print(f"# phase 25 (one-rank NCCL mesh): {json.dumps(res)}", flush=True)
+    return res
+
+
+def _p26_mala(mesh, device="cuda"):
+    """MALA on the bench target at P26_CHAINS chains, no tuning; the trace's
+    bit sums per (draw, chain) and the final positions of this rank's
+    chains."""
+    import klara_tpu_torch as kt
+    from klara_tpu_torch.models.examples import synthetic_logistic_regression
+    from klara_tpu_torch.ops import logreg
+
+    target, _, _ = synthetic_logistic_regression(dim=DIM, n_data=N_DATA, device=device)
+    job = kt.MCJob(target, kt.MALA(driftstep=P26_MALA_STEP),
+                   kt.MCRange(n_steps=P26_BURNIN + P26_POST, burnin=P26_BURNIN),
+                   n_chains=P26_CHAINS, monitor=("value",), mesh=mesh)
+    gen = torch.Generator(device=device).manual_seed(26)
+    x0 = 0.1 * torch.randn(P26_CHAINS, DIM, generator=gen, device=device)
+    logreg.KERNEL_LAUNCHES = 0
+    chain = job.run(gen, x0)
+    bits = chain.value.view(torch.int32).sum(-1, dtype=torch.int64)
+    return {"bits": bits.cpu(), "position": chain.final_state.position.cpu(),
+            "k1_launches": logreg.KERNEL_LAUNCHES,
+            "acceptance": float(kt.stats.acceptance(chain))}
+
+
+def _p26_rats(mesh, device="cuda"):
+    """The conjugate rats GibbsJob at P26_CHAINS chains; its traces and
+    final values on the host."""
+    import klara_tpu_torch as kt
+    from klara_tpu_torch.models.examples import rats_gibbs_model
+    from klara_tpu_torch.ops import logreg
+
+    model, v0 = rats_gibbs_model(device=device)
+    job = kt.GibbsJob(model, {}, kt.MCRange(n_steps=P26_SWEEPS, burnin=IO_GIBBS_BURNIN),
+                      n_chains=P26_CHAINS, monitor=GIBBS_MONITOR, device=device, mesh=mesh)
+    logreg.KERNEL_LAUNCHES = 0
+    out = job.run(torch.Generator(device=device).manual_seed(5), v0)
+    return {"samples": {k: v.cpu() for k, v in out.samples.items()},
+            "final": {k: v.cpu() for k, v in out.final_values.items()},
+            "k1_launches": logreg.KERNEL_LAUNCHES}
+
+
+def _p26_param(device="cuda"):
+    """The param-sharded target on mesh2d(1, 2): value and gradient against
+    K1 on the full X at P26_CHAINS positions, and an HMC job with per-chain
+    leap counts on it."""
+    import klara_tpu_torch as kt
+    from klara_tpu_torch.models.examples import synthetic_logistic_regression
+    from klara_tpu_torch.ops import logreg
+    from klara_tpu_torch.parallel import mesh2d, param_sharded_logreg_target
+
+    mesh = mesh2d(1, 2, device=device)
+    _, X, y = synthetic_logistic_regression(dim=DIM, n_data=N_DATA, device=device)
+    target = param_sharded_logreg_target(X, y, mesh)
+    g = torch.Generator(device=device).manual_seed(261)
+    P = 0.3 * torch.randn(P26_CHAINS, DIM, generator=g, device=device)
+    value, grad = target.logdensity_and_grad(P)
+    v = (X.T @ y).contiguous()
+    kval, kgrad = logreg.logreg_value_grad(P, X, v, 100.0, prepared=logreg.prepare_x(X, y))
+    torch.testing.assert_close(value, kval, rtol=VALUE_RTOL, atol=VALUE_ATOL)
+    torch.testing.assert_close(grad, kgrad, rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    err = max(float((value - kval).abs().max()), float((grad - kgrad).abs().max()))
+
+    sampler = kt.HMC(leapstep=0.01, nleaps=5, trajectory_length=P26_HMC_LAMBDA, jitter=0.5,
+                     jitter_style="chain")
+    job = kt.MCJob(target, sampler, kt.MCRange(n_steps=P26_HMC_BURNIN + P26_HMC_POST,
+                                               burnin=P26_HMC_BURNIN),
+                   tuner=kt.DualAveragingTuner(0.8, P26_HMC_BURNIN), n_chains=P26_CHAINS,
+                   monitor=("value",), diagnostics=("accept", "nleaps"), mesh=mesh)
+    logreg.KERNEL_LAUNCHES = 0
+    chain = job.run(torch.Generator(device=device).manual_seed(262),
+                    torch.zeros(DIM, device=device))
+    leaps = chain["nleaps"]
+    return {"max_abs_err_vs_k1": err, "finite": bool(torch.isfinite(chain.value).all()),
+            "mean": kt.stats.mean(chain).cpu(), "acceptance": float(kt.stats.acceptance(chain)),
+            "leaps_per_step": float(leaps.to(torch.float64).mean()),
+            "steps_with_mixed_leaps": int((leaps.max(1).values != leaps.min(1).values).sum()),
+            "k1_launches": logreg.KERNEL_LAUNCHES}
+
+
+def rank_worker(rank, init_file, out_dir, device="cuda:0"):
+    """One of phase 26's two ranks: gloo, both on ``device``."""
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from klara_tpu_torch.parallel import chain_mesh, initialize_distributed
+
+    initialize_distributed("file://" + init_file, 2, rank, backend="gloo", device=device)
+    out = {}
+    try:
+        mesh = chain_mesh(device=device)
+        for name, fn in (("mala", lambda: _p26_mala(mesh, device)),
+                         ("rats", lambda: _p26_rats(mesh, device)),
+                         ("param", lambda: _p26_param(device))):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            _sync(device)
+            out[name]["seconds"] = time.perf_counter() - t0
+            print(f"# rank {rank} {name}: {out[name]['seconds']:.1f} s", flush=True)
+        print(f"# rank {rank} param stats: mean[:4] {out['param']['mean'][:4].tolist()} "
+              f"acceptance {out['param']['acceptance']!r}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def run_two_ranks_on_one_card(device="cuda"):
+    """Phase 26: two processes on cuda:0 joined by gloo (NCCL refuses two
+    ranks on one card), spawned here and stopped before the phase ends;
+    their MALA and rats runs held to this process's runs without a mesh bit
+    for bit, the param-sharded target to K1, and K1 timed at the rank's
+    8192 chains of the 16384-chain main path."""
+    t_phase = time.perf_counter()
+    ref_mala, ref_rats = _p26_mala(None, device), _p26_rats(None, device)
+    worker_device = "cuda:0" if device == "cuda" else device
+    tmp = tempfile.mkdtemp(prefix="klara_p26_")
+    procs = []
+    try:
+        init = os.path.join(tmp, "pg")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank-worker",
+                                   str(r), init, tmp, worker_device], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for r in (0, 1)]
+        outs = [p.communicate(timeout=P26_TIMEOUT)[0] for p in procs]
+        ranks_seconds = time.perf_counter() - t0
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            print("\n".join(f"#   {line}" for line in out.strip().splitlines()[-8:]), flush=True)
+            if p.returncode != 0:
+                raise RuntimeError(f"phase 26 rank {r} failed (exit {p.returncode})")
+        parts = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False) for r in (0, 1)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    _same_bits("two-rank MALA trace bits",
+               torch.cat([p["mala"]["bits"] for p in parts], 1), ref_mala["bits"])
+    _same_bits("two-rank MALA final positions",
+               torch.cat([p["mala"]["position"] for p in parts]), ref_mala["position"])
+    for k, want in ref_rats["samples"].items():
+        _same_bits(f"two-rank rats trace {k}", torch.cat([p["rats"]["samples"][k] for p in parts], 1),
+                   want)
+    for k, want in ref_rats["final"].items():
+        _same_bits(f"two-rank rats final {k}", torch.cat([p["rats"]["final"][k] for p in parts]),
+                   want)
+    a, b = parts[0]["param"], parts[1]["param"]
+    if not (a["finite"] and a["acceptance"] > 0.3 and a["steps_with_mixed_leaps"] > 0):
+        raise RuntimeError(f"param-sharded HMC: {a}")
+    if not torch.equal(a["mean"], b["mean"]) or a["acceptance"] != b["acceptance"]:
+        raise RuntimeError("the two param ranks report different stats.mean or acceptance")
+    bound_ms, bound_by = k1_bound_ms(CHAINS // 2, DIM, N_DATA)
+    k1 = check_k1(CHAINS // 2, DIM, N_DATA, timed=True)
+    res = {
+        "ranks_seconds": ranks_seconds,
+        "seconds_by_run": {k: [p[k]["seconds"] for p in parts] for k in ("mala", "rats", "param")},
+        "mala_k1_launches_per_rank": [p["mala"]["k1_launches"] for p in parts],
+        "mala_k1_launches_one_process": ref_mala["k1_launches"],
+        "mala_acceptance": ref_mala["acceptance"],
+        "rats_k1_launches_per_rank": [p["rats"]["k1_launches"] for p in parts],
+        "param": {k: v for k, v in a.items() if k != "mean"},
+        "k1_c8192": {"ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": bound_ms,
+                     "bound_by": bound_by, "max_abs_err": k1["max_abs_err"]},
+        "phase_seconds": time.perf_counter() - t_phase,
+    }
+    print(f"# phase 26 (two gloo ranks on one card): {json.dumps(res)}", flush=True)
+    return res
+
+
 def run_io(x_end):
     """Phases 21-23 in one temporary directory, removed at the end."""
     tmp = tempfile.mkdtemp(prefix="klara_io_")
@@ -1963,7 +2294,13 @@ def main():
         print(card)
         return
     profile_dir = sys.argv[sys.argv.index("--profile") + 1] if "--profile" in sys.argv else None
-    chees, chees_summary, chees_end, x_end = run_main_path()
+    chees, chees_summary, chees_end, x_end, chees_fingerprint = run_main_path()
+    if "--parallel-only" in sys.argv:
+        del chees_end, x_end
+        run_meshed_main_path(chees, chees_fingerprint)
+        run_two_ranks_on_one_card()
+        print(card)
+        return
     if profile_dir:
         profile_chees(*chees_end, profile_dir)
     del chees_end
@@ -1994,6 +2331,8 @@ def main():
     io_stream, io_resume, io_gibbs = run_io(x_end)
     del x_end
     examples, ex_summary = run_examples()
+    meshed = run_meshed_main_path(chees, chees_fingerprint)
+    two_ranks = run_two_ranks_on_one_card()
 
     by_path = {"chees_precond": chees["k1_launches"], "nuts_precond": nuts["k1_launches"],
                "nuts_looped": looped["k1_launches"], "nuts": raw["k1_launches"],
@@ -2003,7 +2342,11 @@ def main():
                "monitor_slots": slots["k1_launches"],
                "io_stream_mala": io_stream["k1_launches"],
                "io_resume_mala": io_resume["k1_launches"],
-               **{f"ex_{k}": examples[k]["k1_launches"] for k in K1_EXAMPLES}}
+               **{f"ex_{k}": examples[k]["k1_launches"] for k in K1_EXAMPLES},
+               "chees_precond_mesh1": meshed["k1_launches"],
+               "multichip_scaling_mesh1": meshed["multichip_scaling"]["k1_launches"],
+               **{f"mala_two_ranks_rank{r}": n
+                  for r, n in enumerate(two_ranks["mala_k1_launches_per_rank"])}}
     for path, n in by_path.items():
         if n <= 0:
             raise RuntimeError(f"the {path} path launched no K1 kernel")
@@ -2013,7 +2356,12 @@ def main():
                    **{f"zoo_{k}": zoo[k]["k1_launches"] for k in ("ram", "am", "amwg", "slice")},
                    zoo_ars=ars["k1_launches"], io_gibbs_csv=io_gibbs["k1_launches"],
                    **{f"ex_{k}": v["k1_launches"] for k, v in examples.items()
-                      if k not in K1_EXAMPLES})
+                      if k not in K1_EXAMPLES},
+                   # the param-sharded target's products are plain torch, as the JAX
+                   # function runs no Pallas kernel
+                   **{f"rats_two_ranks_rank{r}": n
+                      for r, n in enumerate(two_ranks["rats_k1_launches_per_rank"])},
+                   param_sharded_hmc=two_ranks["param"]["k1_launches"])
     err_by_path = {"chees_precond": chees["k1_max_abs_err_on_path"],
                    "nuts_precond": nuts["k1_max_abs_err_on_path"],
                    "nuts_looped": looped["k1_max_abs_err_on_path"],
@@ -2022,7 +2370,8 @@ def main():
                       for k in ("mala", "mala_16384", "smmala")},
                    "io_stream_mala": io_stream["k1_max_abs_err_on_path"],
                    "io_resume_mala": io_resume["k1_max_abs_err_on_path"],
-                   **{f"ex_{k}": examples[k]["k1_max_abs_err_on_path"] for k in K1_EXAMPLES}}
+                   **{f"ex_{k}": examples[k]["k1_max_abs_err_on_path"] for k in K1_EXAMPLES},
+                   "chees_precond_mesh1": meshed["k1_max_abs_err_on_path"]}
     # 3 TF32 passes x 2 products x 2*C*N*D operations over 495 TFLOP/s: 0.041 ms at the
     # main shape; the 13.6 MB of compulsory traffic would take 0.004 ms
     bound_ms, bound_by = k1_bound_ms(CHAINS, DIM, N_DATA)
@@ -2035,7 +2384,8 @@ def main():
         "launches": sum(by_path.values()),
         "launches_by_path": by_path,
         "max_abs_err": max([small["max_abs_err"], ragged["max_abs_err"], mid["max_abs_err"],
-                            big["max_abs_err"], *err_by_path.values()]),
+                            big["max_abs_err"], two_ranks["k1_c8192"]["max_abs_err"],
+                            *err_by_path.values()]),
         "max_abs_err_by_path": err_by_path,
         "ms": big["ms"],
         "plain_ms": big["plain_ms"],
@@ -2052,6 +2402,10 @@ def main():
         "plain_ms_c64_d4_n200": ex_summary["k1_swiss"]["plain_ms"],
         "bound_ms_c64_d4_n200": ex_summary["k1_swiss"]["bound_ms"],
         "launch_floor_ms": ex_summary["k1_swiss"]["launch_floor_ms"],
+        # a rank's share of the main path on two ranks (phase 26)
+        "ms_c8192": two_ranks["k1_c8192"]["ms"],
+        "plain_ms_c8192": two_ranks["k1_c8192"]["plain_ms"],
+        "bound_ms_c8192": two_ranks["k1_c8192"]["bound_ms"],
     }]}
     print(json.dumps(kernels))
     print(card)
@@ -2062,4 +2416,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank-worker"]:
+        rank_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5])
+    else:
+        main()

@@ -1,9 +1,10 @@
 """klara_tpu_torch — the PyTorch / CUDA port of klara_tpu.
 
-Batch-first MCMC on one NVIDIA GPU: every function of a position takes a
+Batch-first MCMC on NVIDIA GPUs: every function of a position takes a
 leading chains axis, randomness comes from an explicit ``torch.Generator``,
 and the hot op (the logistic-regression value+gradient) is a hand-written
-CUDA kernel with a plain PyTorch version for CPU tensors.  The JAX package
+CUDA kernel with a plain PyTorch version for CPU tensors.  ``parallel``
+splits the chains over the ranks of a device mesh.  The JAX package
 ``klara_tpu`` is the reference each module is tested against.
 """
 
@@ -41,7 +42,7 @@ from klara_tpu_torch.tuners import (
     RobertsRosenthalTuner,
     VanillaTuner,
 )
-from klara_tpu_torch import data, distributions, io, stats
+from klara_tpu_torch import data, distributions, io, parallel, stats
 
 __version__ = "0.1.0"
 
@@ -82,5 +83,6 @@ __all__ = [
     "data",
     "distributions",
     "io",
+    "parallel",
     "stats",
 ]

@@ -346,7 +346,8 @@ def draw_per_chain(dist, like, generator, noise=None):
     """One draw per chain from ``dist`` at the shape and dtype of the
     batch-first value ``like`` (C, ...): the sample shape (C, 1, …) keeps
     each class's shape rule within a chain.  ``noise`` replays the standard
-    draw."""
+    draw.  It knows no mesh: under ``parallel.mesh``'s draw rule its caller
+    hands it the distribution of every chain (``draw_for_all_chains``)."""
     shape = (like.shape[0],) + (1,) * (like.dim() - 1 - dist.event_dims)
     if noise is None:
         draw = dist.sample(generator, shape)

@@ -1,6 +1,9 @@
 """Markov-chain trace (counterpart of klara_tpu/jobs/chain.py): a dict of
 tensors shaped (n_post, n_chains, *event_shape) per monitored field, a dict
-of per-draw diagnostics, and the final sampler state."""
+of per-draw diagnostics, and the final sampler state.  A chain run on a mesh
+holds this rank's block of the chains and names its ``mesh`` and
+``chains_axis``; the statistics of ``klara_tpu_torch.stats`` reduce it over
+every rank."""
 
 from __future__ import annotations
 
@@ -15,6 +18,8 @@ class Chain:
     samples: Dict[str, torch.Tensor]
     diagnostics: Dict[str, torch.Tensor]
     final_state: Any = None
+    mesh: Any = None
+    chains_axis: str = "chains"
 
     @property
     def value(self):

@@ -34,6 +34,17 @@ every sweep, from the current value or a fresh prior draw
 (``reset_from_prior``), and tune per chain during their ``burnin``; HMC/NUTS
 blocks under dual averaging take their initial ε from one step-size search
 per run, against the initial conditionals.
+
+With ``mesh`` the chains split over the mesh dimension ``chains_axis`` as in
+``MCJob``, and the traces equal the one-process run's.  Under
+``parallel.mesh``'s draw rule every conditional is drawn for the global
+chains, and how many numbers a gamma, Poisson or binomial draw takes depends
+on its parameters: so on a split mesh every rank carries the values of all
+``n_chains`` chains, runs the conjugate sweep for all of them (R times the
+work, no collective) and keeps its block in the traces and final values.  A
+nested block runs on the rank's block and all-gathers its new value (one
+all-gather per nested block per sweep); its batch-max leap count is the
+rank's own (the loop is masked per chain and runs no collective).
 """
 
 from __future__ import annotations
@@ -50,6 +61,14 @@ from klara_tpu_torch.distributions.core import draw_per_chain
 from klara_tpu_torch.io.stream import DrawRing, StreamingWriter
 from klara_tpu_torch.jobs.range import MCRange
 from klara_tpu_torch.models.graph import Data, GenericModel, GibbsParameter, Transformation
+from klara_tpu_torch.parallel.mesh import (
+    chain_block,
+    chain_context,
+    check_generators,
+    gather_chains,
+    no_csv_across_processes,
+    take_block,
+)
 from klara_tpu_torch.samplers.base import Sampler
 from klara_tpu_torch.samplers.hamiltonian import find_reasonable_step_size
 from klara_tpu_torch.samplers.hmc import HMC
@@ -82,6 +101,9 @@ class GibbsChains:
     samples: Dict[str, torch.Tensor]
     final_values: Dict[str, torch.Tensor]
     diagnostics: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    # the mesh of a run whose chains split over ranks (this rank's block)
+    mesh: Any = None
+    chains_axis: str = "chains"
 
     def __getitem__(self, key):
         if key in self.samples:
@@ -139,6 +161,9 @@ class GibbsJob:
         (None: the device of v0's tensors, the card when v0 holds none,
         and an error naming ``device="cpu"`` where there is no card; a
         tensor of v0 on another device than a given one raises)
+    mesh, chains_axis : split the chains over that dimension of a
+        ``DeviceMesh`` (``klara_tpu_torch.parallel``); every rank is handed a
+        generator seeded alike, and the outputs hold the rank's block
     """
 
     model: GenericModel
@@ -152,6 +177,8 @@ class GibbsJob:
     hoist_step_search: bool = True
     trace_dtype: Optional[str] = None
     device: Any = None
+    mesh: Any = None
+    chains_axis: str = "chains"
 
     def __post_init__(self):
         self._dependents = self.model.dependents
@@ -197,6 +224,10 @@ class GibbsJob:
             if not isinstance(self._trace_dtype, torch.dtype):
                 raise ValueError(f"unknown trace_dtype {self.trace_dtype!r}")
         self._csv_keys = [k for k in self.monitor if self._opts[k]["destination"] == "csv"]
+        self._block = chain_block(self.mesh, self.chains_axis, self.n_chains)
+        self._local_chains = self.n_chains if self._block is None else self._block.local
+        if self._csv_keys and self.mesh is not None:
+            no_csv_across_processes()
         self._writers: Dict[str, StreamingWriter] = {}
         self._ring = None
 
@@ -210,6 +241,14 @@ class GibbsJob:
             and isinstance(spec.sampler, (HMC, NUTS))
             and isinstance(spec.tuner, DualAveragingTuner)
         )
+
+    def _mine(self, values: Dict[str, Any]) -> Dict[str, Any]:
+        """This rank's block of the carried values (``values`` itself unless
+        the chains split over ranks)."""
+        if self._block is None or not self._block.split:
+            return values
+        carry = set(self._carry_keys())
+        return {k: take_block(v, self._block) if k in carry else v for k, v in values.items()}
 
     def _hoist_step_sizes(self, values: Dict[str, Any], generator):
         """Per-chain (C,) step sizes for nested blocks, searched once per
@@ -227,12 +266,15 @@ class GibbsJob:
 
     def _nested_update(self, var, spec: Nested, values, generator, step_size):
         """``n_steps`` sampler steps on the conditional of ``var`` from ε =
-        ``step_size`` (None: the sampler's own start)."""
-        x0 = values[var.key]
+        ``step_size`` (None: the sampler's own start), on this rank's chains;
+        the new value is every chain's."""
+        mine = self._mine(values)
+        x0 = mine[var.key]
         if spec.reset_from_prior:
-            x0 = draw_per_chain(var.setprior(values), x0, generator)
+            x0 = take_block(draw_per_chain(var.setprior(values), values[var.key], generator),
+                            self._block)
         # conditional target given the CURRENT values of all others
-        frozen = dict(values)
+        frozen = dict(mine)
         target = Target(logdensity_fn=lambda x: var.conditional_logdensity(x, frozen))
         state = spec.sampler.init(target, x0, generator, step_size=step_size, tuner=spec.tuner)
         acc = torch.zeros(x0.shape[0], dtype=torch.float32, device=x0.device)
@@ -245,7 +287,7 @@ class GibbsJob:
                     tune=spec.tuner.update(state.tune, accept, stat, spec.burnin)
                 )
             acc = acc + accept
-        return state.position, {f"{var.key}.accept": acc / spec.n_steps}
+        return gather_chains(state.position), {f"{var.key}.accept": acc / spec.n_steps}
 
     def _block_update(self, var, values, generator, hoisted, noise=None):
         """One block of the sweep: (new value, diagnostics dict)."""
@@ -291,14 +333,17 @@ class GibbsJob:
 
     def _initial_values(self, v0: Dict[str, Any], prebatched: bool):
         """Every value on the run's device, the carried ones with a leading
-        chains axis (already there when ``prebatched``)."""
+        axis of every chain (already there when ``prebatched``)."""
         device = self._device_of(v0)
         carry = set(self._carry_keys())
         values = {}
         for k, v in v0.items():
             t = _as_tensor(v, device)
-            if k in carry and not prebatched:
-                t = t.expand((self.n_chains,) + tuple(t.shape)).clone()
+            if k in carry:
+                # a resumed value holds the global chains (a reloaded
+                # checkpoint) or this rank's, which are gathered
+                t = gather_chains(take_block(t, self._block)) if prebatched else t.expand(
+                    (self.n_chains,) + tuple(t.shape)).clone()
             values[k] = t
         return values
 
@@ -307,6 +352,7 @@ class GibbsJob:
         burnin, thinning = self.mcrange.burnin, self.mcrange.thinning
         n_post = self.mcrange.n_post
         values = self._initial_values(v0, prebatched)
+        mine = self._mine(values)
         device = self._device_of(values)
         dep_keys = [v.key for v in self._dependents]
         diag_keys = (
@@ -321,36 +367,40 @@ class GibbsJob:
             return v.dtype
 
         buffers = {
-            k: torch.empty((n_post,) + tuple(values[k].shape), dtype=buf_dtype(values[k]),
-                           device=values[k].device)
+            k: torch.empty((n_post,) + tuple(mine[k].shape), dtype=buf_dtype(mine[k]),
+                           device=mine[k].device)
             for k in self.monitor
             if self._opts[k]["destination"] == "nstate"
         }
         diag_buffers = {
-            k: torch.empty((n_post, self.n_chains), dtype=torch.float32, device=device)
+            k: torch.empty((n_post, self._local_chains), dtype=torch.float32, device=device)
             for k in diag_keys
         }
-        hoisted = self._hoist_step_sizes(values, generator)
+        hoisted = self._hoist_step_sizes(mine, generator)
         n_steps, ring = self.mcrange.n_steps, self._ring
         for i in range(n_steps):
             values, diags = self._sweep(values, generator, hoisted)
             if i >= burnin and (i - burnin) % thinning == 0:
                 j = (i - burnin) // thinning
+                mine = self._mine(values)
                 for k, buf in buffers.items():
-                    buf[j].copy_(values[k])
+                    buf[j].copy_(mine[k])
                 for k, buf in diag_buffers.items():
                     buf[j].copy_(diags[k])
                 if ring is not None:
-                    ring.save({k: values[k] for k in self._csv_keys})
+                    ring.save({k: mine[k] for k in self._csv_keys})
             if ring is not None and ((i + 1) % ring.rows == 0 or i + 1 == n_steps):
                 count, host = ring.take()
                 if count:
                     for k in self._csv_keys:
                         self._writers[k].append_block(count, {k: host[k]})
+        mine = self._mine(values)
         return GibbsChains(
             samples=buffers,
-            final_values={k: values[k] for k in self._carry_keys()},
+            final_values={k: mine[k] for k in self._carry_keys()},
             diagnostics=diag_buffers,
+            mesh=self.mesh,
+            chains_axis=self.chains_axis,
         )
 
     def run(self, generator, v0: Dict[str, Any]) -> GibbsChains:
@@ -359,23 +409,29 @@ class GibbsJob:
         missing = [v.key for v in self.model.vertices if v.key not in v0]
         if missing:
             raise ValueError(f"v0 missing values for {missing}")
+        check_generators(generator, self.mesh)
         self._open_writers()
-        out = self._run(generator, v0, prebatched=False)
+        with chain_context(self._block):
+            out = self._run(generator, v0, prebatched=False)
         self._close_writers()
         return out
 
     def resume(self, generator, chains: GibbsChains, v0: Dict[str, Any]) -> GibbsChains:
         """Continue for another ``mcrange.n_steps`` sweeps from
         ``chains.final_values``; ``v0`` supplies the values that are not
-        carried (data, hyperparameters), as in ``run``."""
+        carried (data, hyperparameters), as in ``run``.  On a mesh the final
+        values may hold the global chains (a reloaded checkpoint: this rank
+        takes its block) or this rank's."""
         carry = self._carry_keys()
         merged = {k: v for k, v in v0.items() if k not in carry}
         merged.update({k: chains.final_values[k] for k in carry})
         missing = [v.key for v in self.model.vertices if v.key not in merged]
         if missing:
             raise ValueError(f"resume missing values for {missing}")
+        check_generators(generator, self.mesh)
         self._open_writers()
-        out = self._run(generator, merged, prebatched=True)
+        with chain_context(self._block):
+            out = self._run(generator, merged, prebatched=True)
         self._close_writers()
         return out
 

@@ -23,7 +23,14 @@ reaches the host in one copy per field and one host read), or nowhere
 (``'none'``).  With ``verbose`` the loop prints the pooled acceptance rate
 every ``progress_period`` steps, the only host read it adds.
 
-Not ported yet: mesh sharding.
+With ``mesh`` (a ``DeviceMesh`` from ``klara_tpu_torch.parallel``) the
+chains split over the mesh dimension ``chains_axis``: ``n_chains`` stays the
+global count, each rank runs its own contiguous block of chains, and the
+run's cross-chain reductions (pooled tuning, ensemble mass, ChEES, the
+ensemble covariance, the pooled initial step) all-reduce over that
+dimension's group.  Draws follow ``parallel.mesh``'s draw rule, so a chain's
+draws do not depend on the number of ranks; every rank must be handed a
+generator seeded alike (checked once per ``run`` or ``resume``).
 """
 
 from __future__ import annotations
@@ -40,6 +47,18 @@ from klara_tpu_torch.io.stream import DrawRing, StreamingWriter
 from klara_tpu_torch.jobs.chain import Chain
 from klara_tpu_torch.jobs.gibbs import _as_tensor
 from klara_tpu_torch.jobs.range import MCRange
+from klara_tpu_torch.parallel.mesh import (
+    active_block,
+    chain_block,
+    chain_context,
+    check_generators,
+    gather_chains,
+    mean_over_chains,
+    no_csv_across_processes,
+    sum_over_ranks,
+    take_block,
+    var_over_chains,
+)
 from klara_tpu_torch.samplers.base import Info, Sampler
 from klara_tpu_torch.samplers.hmc import jitter_fraction
 from klara_tpu_torch.tuners.tuners import DualAveragingTuner, Tuner
@@ -97,8 +116,8 @@ def tune_update(tuner: Tuner, states, infos: Info, stat_name: str, pooled: bool,
     accept = infos.accept.to(torch.float32)
     stat = infos.accept_stat if stat_name == "accept_stat" else accept
     if pooled:
-        accept = accept.mean().expand(accept.shape)
-        stat = stat.to(torch.float32).mean().expand(stat.shape)
+        accept = mean_over_chains(accept).expand(accept.shape)
+        stat = mean_over_chains(stat.to(torch.float32)).expand(stat.shape)
     return states._replace(tune=tuner.update(states.tune, accept, stat, burnin))
 
 
@@ -108,8 +127,9 @@ def mass_update(states, i: int, burnin: int, mass_period: int):
     Σ = n/(n+5)·var + 5/(n+5)·1e-3 with n the number of chains."""
     if not ((i + 1) % mass_period == 0 and i + 1 >= mass_period and i < burnin):
         return states
-    n_c = states.position.shape[0]
-    var = torch.var(states.position, dim=0, keepdim=True, correction=0)
+    block = active_block()
+    n_c = states.position.shape[0] if block is None else block.total
+    var = var_over_chains(states.position)[None]
     w = n_c / (n_c + 5.0)
     new_inv_mass = (w * var + (1.0 - w) * 1e-3 + 1e-7).expand(states.inv_mass.shape)
     return states._replace(inv_mass=new_inv_mass)
@@ -134,13 +154,13 @@ def chees_update(states, prev_pos, infos: Info, i: int, frac_shared, burnin: int
     frac = infos.extras["traj_frac"].to(torch.float32) * frac_shared
     a = infos.accept_stat.to(torch.float32)
     inv_w = 1.0 / states.inv_mass
-    xbar = prev_pos.mean(0)
-    xpbar = x_prop.mean(0)
+    xbar = mean_over_chains(prev_pos)
+    xpbar = mean_over_chains(x_prop)
     dold = (inv_w * torch.square(prev_pos - xbar)).sum(-1)
     dnew = (inv_w * torch.square(x_prop - xpbar)).sum(-1)
     proj = ((x_prop - xpbar) * p_end).sum(-1)
-    w = a / torch.clamp_min(a.mean(), 1e-3)
-    g = (w * (dnew - dold) * proj * frac).mean()
+    w = a / torch.clamp_min(mean_over_chains(a), 1e-3)
+    g = mean_over_chains(w * (dnew - dold) * proj * frac)
     g = torch.where(torch.isfinite(g), g, torch.zeros_like(g))
     b1, b2 = _f32(0.9, g), _f32(0.999, g)
     t = _f32(i + 1, g)
@@ -181,7 +201,9 @@ class MCJob:
     (ensemble diagonal mass), traj_adaptation / traj_lr / traj_start_frac
     (ChEES), trace_dtype (storage dtype of floating sample traces, e.g.
     'bfloat16'), device (None -> the device of x0 if it is a tensor, else
-    the card; where there is none, an error that names ``device="cpu"``).
+    the card; where there is none, an error that names ``device="cpu"``),
+    mesh / chains_axis (split the chains over that mesh dimension; the
+    states, traces and ``Chain`` hold this rank's block).
 
     Output: destination ('nstate' device traces, 'csv' files under
     ``filepath``, 'none' the final state alone), flush (flush the files
@@ -214,6 +236,8 @@ class MCJob:
     traj_start_frac: float = 0.1
     trace_dtype: Optional[str] = None
     device: Any = None
+    mesh: Any = None
+    chains_axis: str = "chains"
 
     def __post_init__(self):
         if self.tuner is None:
@@ -233,6 +257,9 @@ class MCJob:
             raise ValueError("destination='csv' requires filepath")
         if self.stream_mode not in ("io_callback", "post"):
             raise ValueError(f"unknown stream_mode {self.stream_mode!r}")
+        self._block = chain_block(self.mesh, self.chains_axis, self.n_chains)
+        if self.destination == "csv" and self.mesh is not None:
+            no_csv_across_processes()
         if self.trace_dtype is not None:
             dt = getattr(torch, str(self.trace_dtype), None)
             if not isinstance(dt, torch.dtype):
@@ -360,7 +387,7 @@ class MCJob:
             # one shared step: geometric mean of the per-chain searches, μ
             # re-anchored to it
             tune = states.tune
-            pooled = torch.exp(torch.log(tune.step).mean())
+            pooled = torch.exp(mean_over_chains(torch.log(tune.step)))
             tune = tune._replace(step=pooled.expand(tune.step.shape).to(tune.step.dtype))
             if isinstance(self.tuner, DualAveragingTuner):
                 tune = self.tuner.set_mu_from_step(tune)
@@ -433,7 +460,7 @@ class MCJob:
     def _report(self, i: int, infos: Info):
         """The progress line of step ``i``: the pooled acceptance rate, read
         from the device."""
-        rate = float(infos.accept.to(torch.float32).mean())
+        rate = float(mean_over_chains(infos.accept.to(torch.float32)))
         phase = "burnin " if i < self.mcrange.burnin else "sampling"
         print(f"[{self.target.name}] {phase} iteration {i + 1}: "
               f"{100 * rate:.2f} % acceptance rate")
@@ -469,26 +496,40 @@ class MCJob:
     def run(self, generator=None, x0=None) -> Chain:
         """Run all ``mcrange.n_steps`` steps, adapting during burnin and
         saving the post-burnin draws to ``destination``."""
-        x0 = self._prepare_x0(generator, x0)
+        check_generators(generator, self.mesh)
+        x0 = self._start(generator, x0)
         self._open_writer()
-        self._checkin(x0)
-        return self._drive(self._init_states(generator, x0), generator)
+        with chain_context(self._block):
+            return self._drive(self._init_states(generator, x0), generator)
 
     def resume(self, generator, chain: Chain) -> Chain:
         """Another ``mcrange.n_steps`` steps from ``chain.final_state`` (a live
         state or one from ``io.load_checkpoint``), burnin and adaptation
         included, as ``run`` from that state; a csv run appends its draws to
-        the files."""
+        the files.  On a mesh the state may hold the global chains (a
+        reloaded checkpoint: this rank takes its block) or this rank's."""
+        check_generators(generator, self.mesh)
         self._open_writer()
-        return self._drive(chain.final_state, generator)
+        with chain_context(self._block):
+            return self._drive(take_block(chain.final_state, self._block), generator)
+
+    def _start(self, generator, x0):
+        """This rank's initial positions: ``x0`` prepared for the global
+        chains (``_prepare_x0``), checked, then cut to the rank's block."""
+        x0 = self._prepare_x0(generator, x0)
+        self._checkin(x0)
+        return take_block(x0, self._block)
+
+    def _chain(self, buffers, states) -> Chain:
+        return Chain(samples=buffers[0], diagnostics=buffers[1], final_state=states,
+                     mesh=self.mesh, chains_axis=self.chains_axis)
 
     def _drive(self, states, generator) -> Chain:
         buffers = ({}, {})
         keep = self.destination == "nstate" or self._buffered_csv
         states = self._loop(states, generator, 0, self.mcrange.n_steps, True,
                             buffers if keep else None, self._ring)
-        chain = Chain(samples=buffers[0], diagnostics=buffers[1], final_state=states)
-        return self._squeeze(self._finish_output(chain))
+        return self._squeeze(self._finish_output(self._chain(buffers, states)))
 
     @property
     def _buffered_csv(self) -> bool:
@@ -521,26 +562,26 @@ class MCJob:
         ``run`` streams csv."""
         if self.destination == "csv":
             raise ValueError("run_phased supports destination 'nstate'/'none' only")
-        x0 = self._prepare_x0(generator, x0)
-        self._checkin(x0)
+        check_generators(generator, self.mesh)
+        x0 = self._start(generator, x0)
         device = x0.device
         _sync(device)
         t0 = time.perf_counter()
-        states = self._init_states(generator, x0)
-        burnin = self.mcrange.burnin
-        if burnin > 0:
-            states = self._loop(states, generator, 0, burnin, True)
-            if hasattr(states, "tune") and not self.sampler.self_tuning:
-                states = states._replace(tune=self.tuner.finalize(states.tune))
-        _sync(device)
-        t1 = time.perf_counter()
-        buffers = ({}, {})
-        states = self._loop(states, generator, burnin, self.mcrange.n_steps, False,
-                            buffers if self.destination == "nstate" else None)
+        with chain_context(self._block):
+            states = self._init_states(generator, x0)
+            burnin = self.mcrange.burnin
+            if burnin > 0:
+                states = self._loop(states, generator, 0, burnin, True)
+                if hasattr(states, "tune") and not self.sampler.self_tuning:
+                    states = states._replace(tune=self.tuner.finalize(states.tune))
+            _sync(device)
+            t1 = time.perf_counter()
+            buffers = ({}, {})
+            states = self._loop(states, generator, burnin, self.mcrange.n_steps, False,
+                                buffers if self.destination == "nstate" else None)
         _sync(device)
         t2 = time.perf_counter()
-        chain = self._squeeze(
-            Chain(samples=buffers[0], diagnostics=buffers[1], final_state=states))
+        chain = self._squeeze(self._chain(buffers, states))
         return chain, {"warmup_seconds": t1 - t0, "sampling_seconds": t2 - t1}
 
     # ---------------------------------------- dense ensemble preconditioning
@@ -583,13 +624,15 @@ class MCJob:
         x_end = c1.value[-1].to(torch.float32)
         stage1_state = c1.final_state
         del c1
-        chol = ensemble_cholesky(x_end, ridge)
+        with chain_context(self._block):
+            chol = ensemble_cholesky(x_end, ridge)
+            # stage 2 starts, as any run, from the positions of every chain
+            y0 = gather_chains(torch.linalg.solve_triangular(chol, x_end.T, upper=False).T)
 
         repl = dict(stage2_replace or {})
         if "step_size" not in repl and self.step_size is None:
             repl["step_size"] = float(x_end.shape[1]) ** -0.25
         wjob = dataclasses.replace(self, target=whiten_target(self.target, chol), **repl)
-        y0 = torch.linalg.solve_triangular(chol, x_end.T, upper=False).T
         if warm_stage2:
             warm, _ = wjob.run_phased(generator, y0)
             del warm
@@ -606,11 +649,16 @@ class MCJob:
 
 def ensemble_cholesky(x_end, ridge: float = 1e-6):
     """Cholesky factor of the shrunk, ridged ensemble covariance of the
-    (n_chains, D) positions ``x_end``, in f32."""
+    (n_chains, D) positions ``x_end``, in f32.  Inside
+    ``parallel.mesh.chain_context(block)`` ``x_end`` is this rank's block,
+    the mean and the cross-product are all-reduced over the chains group,
+    and every rank computes the same factor."""
+    block = active_block()
     x_end = x_end.to(torch.float32)
-    n, d = x_end.shape
-    xc = x_end - x_end.mean(0, keepdim=True)
-    cov = (xc.T @ xc) / (n - 1)
+    d = x_end.shape[1]
+    n = x_end.shape[0] if block is None else block.total
+    xc = x_end - mean_over_chains(x_end)[None]
+    cov = sum_over_ranks(xc.T @ xc) / (n - 1)
     w = n / (n + d)
     cov = w * cov + (1.0 - w) * torch.diag(torch.diagonal(cov))
     lam = ridge * torch.diagonal(cov).mean() + 1e-12

@@ -16,6 +16,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from klara_tpu_torch.parallel.mesh import draw_chains
 from klara_tpu_torch.tuners.tuners import Tuner, VanillaTuner
 
 
@@ -34,10 +35,7 @@ def metropolis_accept(log_ratio, generator=None, u=None):
     """Accept where log_ratio > log(u), u ~ U(0, 1) per chain; a NaN ratio
     rejects.  ``u`` may be given (tests replay another package's draws)."""
     if u is None:
-        u = torch.rand(
-            log_ratio.shape, generator=generator, device=log_ratio.device,
-            dtype=log_ratio.dtype,
-        )
+        u = draw_uniform(log_ratio.shape, log_ratio, generator)
     return log_ratio > torch.log(u)
 
 
@@ -52,11 +50,17 @@ def accept_prob(log_ratio):
 
 
 def draw_normal(like, generator=None):
-    return torch.randn(like.shape, generator=generator, device=like.device, dtype=like.dtype)
+    """N(0, 1) at ``like``'s shape (chains axis first), under the draw rule
+    of ``parallel.mesh.draw_chains``."""
+    return draw_chains(lambda s: torch.randn(s, generator=generator, device=like.device,
+                                             dtype=like.dtype), like.shape)
 
 
-def draw_uniform(shape, like, generator=None):
-    return torch.rand(shape, generator=generator, device=like.device, dtype=like.dtype)
+def draw_uniform(shape, like, generator=None, chains_dim=0):
+    """U(0, 1) of ``shape`` whose chains axis is ``chains_dim``, under the
+    draw rule."""
+    return draw_chains(lambda s: torch.rand(s, generator=generator, device=like.device,
+                                            dtype=like.dtype), shape, chains_dim)
 
 
 def tensor_like(value, like):

@@ -16,7 +16,7 @@ from typing import NamedTuple
 import torch
 
 from klara_tpu_torch.models.graph import chain_sum
-from klara_tpu_torch.samplers.base import chain_view, per_chain_step
+from klara_tpu_torch.samplers.base import chain_view, draw_normal, per_chain_step
 from klara_tpu_torch.tuners.tuners import DualAveragingTuner
 
 
@@ -29,10 +29,7 @@ def hamiltonian(logtarget, momentum, inv_mass=None):
 
 def sample_momentum(generator, position, inv_mass=None):
     """p ~ N(0, M): z / sqrt(M⁻¹) for diagonal M."""
-    z = torch.randn(
-        position.shape, generator=generator, device=position.device,
-        dtype=position.dtype,
-    )
+    z = draw_normal(position, generator)
     if inv_mass is None:
         return z
     return z * torch.rsqrt(inv_mass)
@@ -88,10 +85,7 @@ def find_reasonable_step_size(target, position, generator=None, max_iter=100,
     masked batch loop.  ``momentum`` may be given (tests replay another
     package's draws)."""
     lt, grad = target.logdensity_and_grad(position)
-    p0 = momentum if momentum is not None else torch.randn(
-        position.shape, generator=generator, device=position.device,
-        dtype=position.dtype,
-    )
+    p0 = momentum if momentum is not None else draw_normal(position, generator)
     h0 = hamiltonian(lt, p0)
     eps = torch.ones(position.shape[0], dtype=position.dtype, device=position.device)
     start = PhasePoint(position, p0, lt, grad)

@@ -14,7 +14,13 @@ from typing import NamedTuple
 
 import torch
 
-from klara_tpu_torch.samplers.base import Info, Sampler, chain_view, metropolis_accept
+from klara_tpu_torch.samplers.base import (
+    Info,
+    Sampler,
+    chain_view,
+    draw_uniform,
+    metropolis_accept,
+)
 from klara_tpu_torch.samplers.hamiltonian import (
     PhasePoint,
     hamiltonian,
@@ -97,9 +103,7 @@ class HMC(Sampler):
         lam = torch.exp(log_traj)
         frac = ones
         if self.jitter > 0.0 and (generator is not None or jitter_u is not None):
-            u = jitter_u if jitter_u is not None else torch.rand(
-                eps.shape, generator=generator, device=eps.device, dtype=eps.dtype
-            )
+            u = jitter_u if jitter_u is not None else draw_uniform(eps.shape, eps, generator)
             frac = jitter_fraction(u, self.jitter)
             lam = lam * frac
         n = torch.round(lam / eps).to(torch.int32)

@@ -20,11 +20,13 @@ import torch
 
 from klara_tpu_torch.distributions.core import draw_per_chain
 from klara_tpu_torch.models.graph import chain_sum
+from klara_tpu_torch.parallel.mesh import draw_for_all_chains
 from klara_tpu_torch.samplers.base import (
     Info,
     Sampler,
     accept_prob,
     chain_view,
+    draw_normal,
     metropolis_accept,
     per_chain_step,
 )
@@ -75,13 +77,21 @@ class MH(Sampler):
 
         if self.proposal_fn is None:
             if z is None:
-                z = torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
+                z = draw_normal(x, generator)
             x_new = self._propose(x, scale, z)
             ratio = target.logdensity(x_new) - lt
             lt_new = ratio + lt
         else:
             fwd = self.proposal_fn(x, scale)
-            x_new = draw_per_chain(fwd, x, generator, z)
+            if z is None:
+                # on a split mesh drawn from every chain's proposal (the draw
+                # rule); else from fwd
+                x_new = draw_for_all_chains(
+                    lambda xs, ss: draw_per_chain(
+                        fwd if xs is x else self.proposal_fn(xs, ss), xs, generator),
+                    x, scale)
+            else:
+                x_new = draw_per_chain(fwd, x, generator, z)
             lt_new = target.logdensity(x_new)
             ratio = lt_new - lt
             if not self.symmetric:

@@ -32,7 +32,7 @@ from typing import NamedTuple
 import torch
 
 from klara_tpu_torch.models.graph import chain_sum
-from klara_tpu_torch.samplers.base import Info, Sampler, chain_view
+from klara_tpu_torch.samplers.base import Info, Sampler, chain_view, draw_uniform
 from klara_tpu_torch.samplers.hamiltonian import (
     PhasePoint,
     hamiltonian,
@@ -137,13 +137,12 @@ class NUTS(Sampler):
         """One step's draws from ``generator``."""
         x = state.position
         J, C = self.max_doublings, x.shape[0]
-        kw = dict(generator=generator, device=x.device, dtype=x.dtype)
         return NUTSDraws(
             momentum=sample_momentum(generator, x, state.inv_mass),
-            slice_u=torch.rand(C, **kw),
-            direction=torch.rand(J, C, **kw) < 0.5,
-            swap_u=torch.rand(J, C, **kw),
-            take_u=torch.rand((1 << J) - 1, C, **kw),
+            slice_u=draw_uniform((C,), x, generator),
+            direction=draw_uniform((J, C), x, generator, chains_dim=1) < 0.5,
+            swap_u=draw_uniform((J, C), x, generator, chains_dim=1),
+            take_u=draw_uniform(((1 << J) - 1, C), x, generator, chains_dim=1),
         )
 
     # --------------------------------------------------------------- step

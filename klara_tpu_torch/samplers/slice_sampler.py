@@ -13,7 +13,9 @@ slice.  The chains run in lockstep under a per-chain ``alive`` mask: a loop
 runs while any chain is alive and a finished chain's interval is frozen, so
 a chain's k-th shrink draw is the k-th draw of the loop.  Each loop
 iteration evaluates the log-density of the whole batch and reads one flag
-back from the device; ``HOST_READS`` counts those reads.
+back from the device; ``HOST_READS`` counts those reads.  The shrinkage
+draws inside its loop, so on a chains mesh its flag is taken across the
+ranks (every rank draws as often as the one process would).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from klara_tpu_torch.parallel.mesh import any_over_chains
 from klara_tpu_torch.samplers.base import (
     Info,
     Sampler,
@@ -36,10 +39,10 @@ from klara_tpu_torch.tuners.tuners import TuneState
 HOST_READS = 0
 
 
-def _any(mask) -> bool:
+def _any(mask, across_ranks=False) -> bool:
     global HOST_READS
     HOST_READS += 1
-    return bool(mask.any())
+    return any_over_chains(mask) if across_ranks else bool(mask.any())
 
 
 class SliceState(NamedTuple):
@@ -111,7 +114,7 @@ class SliceSampler(Sampler):
             accepted = torch.zeros(C, dtype=torch.bool, device=x.device)
             alive = ~accepted
             it = 0
-            while it < self.max_shrinks and _any(alive):
+            while it < self.max_shrinks and _any(alive, across_ranks=True):
                 uk = (draw_uniform((C,), x, generator) if draws is None
                       else draws.shrink_u[:, i, it])
                 new = left + uk * (right - left)

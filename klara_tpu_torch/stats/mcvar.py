@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from klara_tpu_torch.stats._common import extract_f32
+from klara_tpu_torch.parallel.mesh import gather_chains, sum_over_ranks
+from klara_tpu_torch.stats._common import chain_scope, extract_f32
 
 
 def autocov(x, maxlag=None):
@@ -96,12 +97,15 @@ def mcse(chain_or_array, estimator: str = "imse", field: str = "value", **kwargs
 def ess(chain_or_array, estimator: str = "imse", field: str = "value",
         combine_chains: bool = True, **kwargs):
     """Effective sample size n·var_iid/var_mc, per chain; with
-    ``combine_chains`` summed over the chain axis (dim 1)."""
-    x = extract_f32(chain_or_array, field)
+    ``combine_chains`` summed over the chain axis (dim 1).  A meshed chain's
+    sum is all-reduced (per chain: gathered), so every rank gets the global
+    value."""
+    x = extract_f32(chain_or_array, field, gather=False)
     e = x.shape[0] * mcvar_iid(x) / _ESTIMATORS[estimator](x, **kwargs)
-    if combine_chains and x.dim() >= 2:
-        e = e.sum(0)
-    return e
+    if x.dim() < 2:
+        return e
+    with chain_scope(chain_or_array, x):
+        return sum_over_ranks(e.sum(0)) if combine_chains else gather_chains(e)
 
 
 def iact(chain_or_array, estimator: str = "imse", field: str = "value", **kwargs):

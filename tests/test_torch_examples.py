@@ -69,9 +69,9 @@ def test_port_data_files_equal_jax(name, fields):
     assert kt.data.FILES == os.path.join(REPO, "klara_tpu_torch", "data", "files")
 
 
-def test_examples_lists_the_jax_examples_but_multichip():
+def test_examples_lists_the_jax_examples():
     assert kt.data.examples() == examples()
-    assert examples() == [e for e in jexamples() if e != "multichip_scaling"]
+    assert examples() == jexamples()
     assert "run_examples" not in examples()
 
 
