@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch port (klara_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                # phases 1-26
+    python3 chip_smoke.py                # phases 1-27
+    python3 chip_smoke.py --keyed-only   # phases 1-3 and 27 (kernel K2, keyed draws)
     python3 chip_smoke.py --parallel-only  # phases 1-4 and 25-26 (meshes)
     python3 chip_smoke.py --zoo-only     # phases 1-4 and 12-20 (the sampler zoo)
     python3 chip_smoke.py --io-only      # phases 1-4 and 21-23 (the output layer)
@@ -11,7 +12,8 @@
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build the hand-written CUDA kernels from ``klara_tpu_torch/ops/csrc``;
+2. build the hand-written CUDA kernels from ``klara_tpu_torch/ops/csrc``
+   (K1 and K2, one nvcc each, started together);
 3. compare kernel K1 (batched logreg value+grad, three TF32 passes) with its
    plain PyTorch version on the card, TF32 off, at C=5/D=7/N=300, at the
    ragged C=200/D=100/N=1000 (every tile edge of the kernel), at C=4096 and
@@ -49,11 +51,14 @@ Phases, each of which raises on failure (the script then exits non-zero):
    last subtree, so the looped form's checkpoint slots decide outcomes;
 9. run bench.py's rats Gibbs row: ``GibbsJob`` on the conjugate rats model
    at 4096 chains, 30000 sweeps (500 burnin), the five hyperparameters
-   monitored, after a short warm-up run; check that every carried value and
-   trace lives on the card, every draw is finite, rank-R̂ max ≤ 1.02 and the
-   posterior means of alpha_c and beta_c match the published BUGS values;
-   print seconds, sweeps/s, chain-sweeps/s, min ESS, ESS per draw and ESS/s;
-10. run 5 conjugate sweeps from phase 9's final values under
+   monitored, after a short warm-up run, every conditional drawn by K2 (the
+   keyed stream); check that every carried value and trace lives on the
+   card, every draw is finite, rank-R̂ max ≤ 1.02 and the posterior means of
+   alpha_c and beta_c match the published BUGS values; print seconds,
+   sweeps/s, chain-sweeps/s, min ESS, ESS per draw, ESS/s and K2's launches
+   per sweep, and, after phase 10, the device kernels and time per sweep of
+   ``GIBBS_PROFILE_SWEEPS`` profiled sweeps;
+10. run 5 conjugate sweeps (K2 draws) from phase 9's final values under
    ``torch.cuda.set_sync_debug_mode("error")``: the sweep reads nothing back;
 11. run the rats model with ``alpha`` as a nested HMC block on its
    conditional (``rats_gibbs_model(nested_alpha=True)``: MCMC-within-Gibbs
@@ -142,18 +147,37 @@ Phases, each of which raises on failure (the script then exits non-zero):
    min ESS; destroy the group;
 26. spawn two processes of this script (``--rank-worker``) on cuda:0 joined
    by gloo (NCCL refuses two ranks on one card): MALA on the bench target
-   at 4096 chains, 2048 a rank, and the conjugate rats ``GibbsJob`` at 4096
-   chains x 500 sweeps, each held bit for bit to this process's run of the
-   same seed without a mesh; ``param_sharded_logreg_target`` on
+   at 4096 chains, 2048 a rank, the conjugate rats ``GibbsJob`` at 4096
+   chains x 500 sweeps and MH with a LogNormal proposal distribution (K2
+   draws) on a 100-dim Gamma(2, 1) product at 4096 chains x 200 steps, each
+   held bit for bit to this process's run of the same seed without a mesh;
+   the rats and MH runs carry 2048 chains a rank and issue no collective
+   but the run's generator check (``parallel.mesh.COLLECTIVES``: 0 in the
+   sweeps and steps); ``param_sharded_logreg_target`` on
    ``mesh2d(1, 2)`` at 4096 x 100 x 1024 held to K1 on the full X (phase-3
    tolerances) and run under HMC with per-chain leap counts (50 + 100
    steps; acceptance above 0.3, both ranks' ``stats.mean`` and
    ``stats.acceptance`` equal); time K1 at 8192 chains, a rank's share of
    the main path on two ranks.  Both processes are stopped before the phase
-   ends.
+   ends;
+27. hold K2 (``klara_tpu_torch/ops/csrc/keyed_draws.cu``, per-chain keyed
+   draws) to its plain version on the card with the same keys and counters
+   in every mode and both types (``K2_*`` tolerances: uniforms bit for bit,
+   the f64 ones holding 53 bits of Philox words 0-1, normals within a few
+   ulp, gamma, Poisson and binomial on the same attempt but for a stated
+   share, and there within a relative tolerance or equal), gamma also at
+   the rats sweep's scalar shape parameters 15.001 and 75.001 (4096 x 1),
+   the means and variances of 10^6 kernel draws per grid point to the exact
+   ones within 5 standard errors, the overflow counter to 0; count one
+   Philox call's SASS instructions by pipe (``cuobjdump`` of a probe built
+   from K2's source); time every mode at the rats shapes and at 16384 x 100
+   beside its plain version, torch's own call and its bound.
 
 The Gibbs paths launch no K1 (their sweep is plain torch ops in both
-packages); the kernels line records their K1 count, 0.  The output layer
+packages); the kernels line records their K1 count, 0.  K2 draws every
+Gibbs conditional and every MH proposal distribution: the kernels line
+lists its launches on each such path (phases 9, 11, 23, 24's four examples
+that draw through it, 26), each counted from 0 just before the path's run.  The output layer
 adds no kernel: phases 21-22 launch K1 on new paths (``io_stream_mala``,
 ``io_resume_mala``) and phase 23 launches none (``io_gibbs_csv``).
 
@@ -184,6 +208,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -202,6 +227,14 @@ GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-3
 # a sum whose terms do not cancel, more where they do
 TF32_VALUE_RTOL, TF32_GRAD_RTOL, TF32_GRAD_ATOL = 1e-3, 1e-2, 0.5
 TF32_PEAK_FLOPS, HBM_BYTES_PER_S = 495e12, 3.35e12  # H100 SXM, dense TF32; HBM3
+# K2's bound: the SASS instructions of one Philox4x32-10 call as nvcc compiles K2's
+# ``philox`` (``k2_philox_sass``), issued at the H100 SXM's rates per SM and clock: 64
+# lanes of the FMA pipe (IMAD), 64 of the ALU pipe (LOP3, IADD3, SHF, ...), 128 issues
+# (4 schedulers x 32 lanes) for every instruction; 132 SMs x 1.98 GHz
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+SASS_FMA_PIPE = ("IMAD", "IMUL")
+SASS_ALU_PIPE = ("LOP3", "LOP", "IADD3", "IADD", "SHF", "SHL", "SHR", "LEA", "ISETP", "SEL",
+                 "PRMT", "MOV", "IMNMX", "IABS", "PLOP3", "SGXT", "BMSK")
 RHAT_GATE = 1.02  # bench.py's mixing gate
 # K1 launches of the same paths with the kernel's earlier design (both
 # products on the FP32 cores; same seeds, sizes and settings).  Stage 1 is the
@@ -227,6 +260,7 @@ SMALL_CHAINS, LOOPED_POST, RAW_POST = 4096, 1000, 2400
 # bench.py's gibbs row (GIBBS_CHAINS, GIBBS_STEPS, GIBBS_BURNIN)
 GIBBS_CHAINS, GIBBS_SWEEPS, GIBBS_BURNIN, GIBBS_WARM = 4096, 30000, 500, 1000
 GIBBS_MONITOR = ("alpha_c", "beta_c", "sigma2_c", "sigma2_a", "sigma2_b")
+GIBBS_PROFILE_SWEEPS = 50  # phase 9's profiled window (kernels per sweep)
 # published BUGS posterior means of the rats example, with the gate's width
 BUGS_MEANS = {"alpha_c": (242.5, 1.0), "beta_c": (6.19, 0.1)}
 NESTED_SWEEPS, NESTED_BURNIN = 2000, 200
@@ -276,6 +310,8 @@ IO_GIBBS_CSV = ("alpha_c", "sigma2_c")
 SMOKE_EXAMPLES = ("poisson_mh", "gamma_mh_truncation", "t_slice", "swiss_mala_analytical",
                   "swiss_hmc_analytical", "bivariate_normal_gibbs", "rats_gibbs")
 K1_EXAMPLES = ("swiss_mala_analytical", "swiss_hmc_analytical")
+# the examples whose proposals or conditionals draw through K2
+K2_EXAMPLES = ("poisson_mh", "gamma_mh_truncation", "bivariate_normal_gibbs", "rats_gibbs")
 POISSON_LAM, GAMMA_MOMENTS, BIV_RHO, BIV_RHO_WIDTH = 6.0, (2.0, 2.0), 0.8, 0.05
 # phase 25: examples_torch/multichip_scaling.py at its full width (16384 chains,
 # NUTS(max_doublings=6)), depth cut from 200 + 300 steps to 50 + 100
@@ -287,6 +323,29 @@ P26_CHAINS, P26_MALA_STEP, P26_BURNIN, P26_POST = 4096, 0.005, 50, 100
 P26_SWEEPS = IO_GIBBS_SWEEPS
 P26_HMC_LAMBDA, P26_HMC_BURNIN, P26_HMC_POST = 0.05, 50, 100
 P26_TIMEOUT = 600
+P26_MH_STEPS = 200
+# phase 27: K2 (keyed draws) against its plain version at the rats blocks' widest
+# per-chain draw, 4096 chains x 30; moments of 10^6 draws a point on the grid below;
+# times at the rats shapes (4096 chains x 1 and x 30 elements) and 16384 x 100, with
+# the parameters each mode is timed at: the rats InverseGamma conditionals' shape
+# parameter (1e-3 + 15), Poisson by PTRS, binomial by BTRS.  The rats sweep's three
+# gamma launches pass their shape as a Python number (the kernel's scalar branch):
+# a0 + 30/2 and a0 + 30 * 5/2 (a0 = 1e-3), compared at 4096 x 1 as the sweep draws them
+K2_COMPARE_SHAPE, K2_MOMENT_SHAPE = (4096, 30), (1000, 1000)
+K2_RATS_GAMMA_SHAPE, K2_RATS_ALPHAS = (4096, 1), (15.001, 75.001)
+K2_TIME_SHAPES = {"c4096_e1": (4096, 1), "c4096_e30": (4096, 30), "c16384_e100": (16384, 100)}
+K2_TIME_PARAMS = {"uniform": (), "normal": (), "gamma": (15.001,), "poisson": (30.0,),
+                  "binomial": (100.0, 0.3)}
+K2_ALPHAS, K2_LAMBDAS = (1e-3, 0.3, 1.0, 7.5, 1e4), (0.5, 9.9, 10.0, 1e3)
+K2_BINOMIALS = tuple((n, p) for n in (1, 20, 1000) for p in (0.01, 0.5, 0.99))
+# K2 against its plain version on the same key and counters: uniforms bit for bit (the
+# f64 uniform carries 53 bits of Philox words 0-1, the f64 normal words 0-3); normals within K2_NORMAL_ULP units in the last place (the kernel's
+# logf/cosf and torch's CUDA log/cos may round apart); gamma, Poisson and binomial
+# accepted on the same attempt in all but K2_OTHER_ATTEMPT_SHARE of the elements (an
+# ulp can flip an accept near its boundary), there gamma within K2_GAMMA_RTOL and
+# Poisson and binomial equal
+K2_NORMAL_ULP, K2_OTHER_ATTEMPT_SHARE, K2_MOMENT_Z = 4.0, 1e-4, 5.0
+K2_GAMMA_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 
 
 def _card_line() -> str:
@@ -1073,8 +1132,12 @@ def run_gibbs_rats(device="cuda", chains=GIBBS_CHAINS, sweeps=GIBBS_SWEEPS,
     _, warm_secs = _timed_gibbs(job(burnin + warm), gen, v0, device)
     full = job(sweeps)
     logreg.KERNEL_LAUNCHES = 0
+    _k2_reset()
     out, secs = _timed_gibbs(full, gen, v0, device)
-    launches = logreg.KERNEL_LAUNCHES
+    launches, k2 = logreg.KERNEL_LAUNCHES, _k2_launches()
+    from klara_tpu_torch.ops import keyed
+
+    k2_by_mode = dict(keyed.LAUNCHES_BY_MODE)
 
     where = {t.device.type for t in (*out.samples.values(), *out.final_values.values())}
     if where != {torch.device(device).type}:
@@ -1098,6 +1161,9 @@ def run_gibbs_rats(device="cuda", chains=GIBBS_CHAINS, sweeps=GIBBS_SWEEPS,
         "ess_per_sec": min_ess / secs,
         "rhat_max": rhat,
         "k1_launches": launches,
+        "k2_launches": k2,
+        "k2_launches_per_sweep": k2 / sweeps,
+        "k2_launches_by_mode": k2_by_mode,
         "by_key": summary,
     }
     print(f"# gibbs_rats {chains} chains x {sweeps} sweeps: {json.dumps(res)}", flush=True)
@@ -1113,42 +1179,54 @@ def run_gibbs_rats(device="cuda", chains=GIBBS_CHAINS, sweeps=GIBBS_SWEEPS,
 def check_gibbs_no_host_read(job, chains, v0, gen, n_sweeps=5):
     """Phase 10: conjugate sweeps from phase 9's final values under sync
     debug mode 'error'."""
+    from klara_tpu_torch.ops import keyed
+
     values = job._initial_values({**v0, **chains.final_values}, prebatched=True)
+    stream = job._stream(gen, gen.device)
     torch.cuda.synchronize()
     mode = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        for _ in range(n_sweeps):
-            values, _ = job._sweep(values, gen, {})
+        for i in range(n_sweeps):
+            values, _ = job._sweep(values, gen, {}, stream=stream, sweep=i)
     finally:
         torch.cuda.set_sync_debug_mode(mode)
     torch.cuda.synchronize()
+    keyed.raise_on_overflow()
     if not all(bool(torch.isfinite(values[k]).all()) for k in chains.final_values):
         raise RuntimeError("non-finite values after the sync-checked sweeps")
     print(f"# rats Gibbs sweep: {n_sweeps} sweeps with no host read", flush=True)
 
 
-def profile_gibbs(job, chains, v0, gen, out_dir, window=200, warm=20):
-    """Opt-in: ``window`` conjugate rats sweeps from phase 9's final values
-    under torch.profiler (device kernels per sweep, device busy time), then
-    ``window`` more without it for the wall time.  Writes
-    profile_gibbs.json and profile_gibbs.txt (key_averages) under
-    ``out_dir``."""
+def profile_gibbs(job, chains, v0, gen, out_dir=None, window=200, warm=20):
+    """``window`` conjugate rats sweeps from phase 9's final values under
+    torch.profiler (device kernels per sweep, device busy time), then
+    ``window`` more without it for the wall time.  With ``out_dir`` (the
+    opt-in profile) writes profile_gibbs.json and profile_gibbs.txt
+    (key_averages) there; phase 9 runs a short window without."""
+    from klara_tpu_torch.ops import keyed
+
     values = job._initial_values({**v0, **chains.final_values}, prebatched=True)
-    for _ in range(warm):
-        values, _ = job._sweep(values, gen, {})
+    stream, sweep = job._stream(gen, gen.device), 0
+
+    def sweeps(n):
+        nonlocal values, sweep
+        for _ in range(n):
+            values, _ = job._sweep(values, gen, {}, stream=stream, sweep=sweep)
+            sweep += 1
+
+    sweeps(warm)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        for _ in range(window):
-            values, _ = job._sweep(values, gen, {})
+        sweeps(window)
         torch.cuda.synchronize()
         wall_profiled = 1e3 * (time.perf_counter() - t0)
     t0 = time.perf_counter()
-    for _ in range(window):
-        values, _ = job._sweep(values, gen, {})
+    sweeps(window)
     torch.cuda.synchronize()
+    keyed.raise_on_overflow()
     wall = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
@@ -1161,7 +1239,11 @@ def profile_gibbs(job, chains, v0, gen, out_dir, window=200, warm=20):
         "idle_share_profiled": 1.0 - busy / wall_profiled,
         # profiled device busy time over the unprofiled window's wall time
         "idle_share_est": 1.0 - busy / wall,
+        "k2_kernels_per_sweep": sum("keyed_draws" in e.name for e in kernels) / window,
     }
+    print(f"# gibbs_rats sweep profile: {json.dumps(res)}", flush=True)
+    if out_dir is None:
+        return res
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "profile_gibbs.json"), "w") as f:
         json.dump(res, f, indent=1)
@@ -1170,7 +1252,6 @@ def profile_gibbs(job, chains, v0, gen, out_dir, window=200, warm=20):
             f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
         except (KeyError, AttributeError):  # torch versions before the device_* names
             f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
-    print(f"# gibbs_rats sweep profile: {json.dumps(res)}", flush=True)
     return res
 
 
@@ -1190,8 +1271,9 @@ def run_gibbs_nested(conj_summary, device="cuda", chains=GIBBS_CHAINS, sweeps=NE
         raise RuntimeError("the nested HMC block does not take the hoisted step-size search")
     gen = torch.Generator(device=device).manual_seed(1)
     logreg.KERNEL_LAUNCHES = 0
+    _k2_reset()
     out, secs = _timed_gibbs(job, gen, v0, device)
-    launches = logreg.KERNEL_LAUNCHES
+    launches, k2 = logreg.KERNEL_LAUNCHES, _k2_launches()
     for v in (*out.samples.values(), out["alpha.accept"]):
         if not bool(torch.isfinite(v).all()):
             raise RuntimeError("non-finite draws in the nested rats trace")
@@ -1213,6 +1295,7 @@ def run_gibbs_nested(conj_summary, device="cuda", chains=GIBBS_CHAINS, sweeps=NE
         "mean_z_vs_conjugate": z_conj,
         "mean_z_vs_jax_nested": z_jax,
         "k1_launches": launches,
+        "k2_launches": k2,
         "by_key": summary,
     }
     print(f"# gibbs_rats_nested {chains} chains x {sweeps} sweeps: {json.dumps(res)}",
@@ -1834,9 +1917,10 @@ def run_io_gibbs(tmp, device="cuda", chains=GIBBS_CHAINS, sweeps=IO_GIBBS_SWEEPS
 
     spent = {"write": 0.0, "format": 0.0, "take": 0.0}
     logreg.KERNEL_LAUNCHES = 0
+    _k2_reset()
     with _timed_writer(spent):
         (first, second), reads, secs = _counted(lambda: both(job))
-    launches = logreg.KERNEL_LAUNCHES
+    launches, k2 = logreg.KERNEL_LAUNCHES, _k2_launches()
     (first_t, second_t), twin_reads, twin_secs = _counted(lambda: both(twin))
     n_post = kw["mcrange"].n_post
     flushes = 2 * _flushes(sweeps, burnin, 1, chunk)
@@ -1875,6 +1959,7 @@ def run_io_gibbs(tmp, device="cuda", chains=GIBBS_CHAINS, sweeps=IO_GIBBS_SWEEPS
         "host_reads_csv": reads[0],
         "host_reads_twin": twin_reads[0],
         "k1_launches": launches,
+        "k2_launches": k2,
         "alpha_c_mean": float(second_t.samples["alpha_c"].to(torch.float64).mean()),
     }
     print(f"# io_gibbs_csv {chains} chains x {sweeps} sweeps x 2: {json.dumps(res)}", flush=True)
@@ -1956,11 +2041,13 @@ def run_examples(device="cuda", names=SMOKE_EXAMPLES):
     res, finals, t_phase = {}, {}, time.perf_counter()
     for name in names:
         logreg.KERNEL_LAUNCHES = 0
+        _k2_reset()
         t0 = time.perf_counter()
         out = registry[name](device=device)
         _sync(device)
         secs = time.perf_counter() - t0
         res[name] = {"seconds": secs, "k1_launches": logreg.KERNEL_LAUNCHES,
+                     "k2_launches": _k2_launches(),
                      "truth": check_example_output(name, out, device)}
         if name in K1_EXAMPLES:
             finals[name] = out.final_state.position
@@ -2104,9 +2191,19 @@ def _p26_mala(mesh, device="cuda"):
             "acceptance": float(kt.stats.acceptance(chain))}
 
 
+def _collectives_of(fn):
+    """``fn()`` and the collectives ``parallel.mesh``'s helpers issued in it."""
+    from klara_tpu_torch.parallel.mesh import COLLECTIVES
+
+    before = dict(COLLECTIVES)
+    out = fn()
+    return out, {k: COLLECTIVES[k] - before[k] for k in COLLECTIVES}
+
+
 def _p26_rats(mesh, device="cuda"):
     """The conjugate rats GibbsJob at P26_CHAINS chains; its traces and
-    final values on the host."""
+    final values on the host, the chains each rank carried and the
+    collectives of its run."""
     import klara_tpu_torch as kt
     from klara_tpu_torch.models.examples import rats_gibbs_model
     from klara_tpu_torch.ops import logreg
@@ -2115,10 +2212,37 @@ def _p26_rats(mesh, device="cuda"):
     job = kt.GibbsJob(model, {}, kt.MCRange(n_steps=P26_SWEEPS, burnin=IO_GIBBS_BURNIN),
                       n_chains=P26_CHAINS, monitor=GIBBS_MONITOR, device=device, mesh=mesh)
     logreg.KERNEL_LAUNCHES = 0
-    out = job.run(torch.Generator(device=device).manual_seed(5), v0)
+    _k2_reset()
+    out, collectives = _collectives_of(
+        lambda: job.run(torch.Generator(device=device).manual_seed(5), v0))
     return {"samples": {k: v.cpu() for k, v in out.samples.items()},
             "final": {k: v.cpu() for k, v in out.final_values.items()},
-            "k1_launches": logreg.KERNEL_LAUNCHES}
+            "carried": sorted({v.shape[0] for v in out.final_values.values()}
+                              | {v.shape[1] for v in out.samples.values()}),
+            "collectives": collectives,
+            "k1_launches": logreg.KERNEL_LAUNCHES, "k2_launches": _k2_launches()}
+
+
+def _p26_mh(mesh, device="cuda"):
+    """MH with an asymmetric LogNormal proposal distribution (keyed draws)
+    on a 100-dim Gamma(2, 1) product at P26_CHAINS chains; the trace's bit
+    sums, the final positions, the collectives of the run."""
+    import klara_tpu_torch as kt
+    from klara_tpu_torch.distributions import LogNormal
+
+    target = kt.Target(logdensity_fn=lambda x: (torch.log(x) - x).sum(-1), dim=DIM)
+    sampler = kt.MH(proposal_fn=lambda x, s: LogNormal(torch.log(x), 0.1 * s[:, None]),
+                    symmetric=False)
+    job = kt.MCJob(target, sampler, kt.MCRange(n_steps=P26_MH_STEPS, burnin=P26_BURNIN),
+                   n_chains=P26_CHAINS, monitor=("value",), mesh=mesh)
+    _k2_reset()
+    chain, collectives = _collectives_of(
+        lambda: job.run(torch.Generator(device=device).manual_seed(263),
+                        torch.full((DIM,), 2.0, device=device)))
+    bits = chain.value.view(torch.int32).sum(-1, dtype=torch.int64)
+    return {"bits": bits.cpu(), "position": chain.final_state.position.cpu(),
+            "carried": chain.final_state.position.shape[0], "collectives": collectives,
+            "k2_launches": _k2_launches(), "acceptance": float(kt.stats.acceptance(chain))}
 
 
 def _p26_param(device="cuda"):
@@ -2173,6 +2297,7 @@ def rank_worker(rank, init_file, out_dir, device="cuda:0"):
         mesh = chain_mesh(device=device)
         for name, fn in (("mala", lambda: _p26_mala(mesh, device)),
                          ("rats", lambda: _p26_rats(mesh, device)),
+                         ("mh", lambda: _p26_mh(mesh, device)),
                          ("param", lambda: _p26_param(device))):
             t0 = time.perf_counter()
             out[name] = fn()
@@ -2189,11 +2314,14 @@ def rank_worker(rank, init_file, out_dir, device="cuda:0"):
 def run_two_ranks_on_one_card(device="cuda"):
     """Phase 26: two processes on cuda:0 joined by gloo (NCCL refuses two
     ranks on one card), spawned here and stopped before the phase ends;
-    their MALA and rats runs held to this process's runs without a mesh bit
-    for bit, the param-sharded target to K1, and K1 timed at the rank's
-    8192 chains of the 16384-chain main path."""
+    their MALA, rats and MH-proposal runs held to this process's runs
+    without a mesh bit for bit, the rats and MH runs to each rank's block of
+    2048 chains and to no collective but the run's generator check, the
+    param-sharded target to K1, and K1 timed at the rank's 8192 chains of
+    the 16384-chain main path."""
     t_phase = time.perf_counter()
     ref_mala, ref_rats = _p26_mala(None, device), _p26_rats(None, device)
+    ref_mh = _p26_mh(None, device)
     worker_device = "cuda:0" if device == "cuda" else device
     tmp = tempfile.mkdtemp(prefix="klara_p26_")
     procs = []
@@ -2227,6 +2355,22 @@ def run_two_ranks_on_one_card(device="cuda"):
     for k, want in ref_rats["final"].items():
         _same_bits(f"two-rank rats final {k}", torch.cat([p["rats"]["final"][k] for p in parts]),
                    want)
+    _same_bits("two-rank MH trace bits", torch.cat([p["mh"]["bits"] for p in parts], 1),
+               ref_mh["bits"])
+    _same_bits("two-rank MH final positions", torch.cat([p["mh"]["position"] for p in parts]),
+               ref_mh["position"])
+    # a rank carries its 2048 chains; the run's one collective is the generator
+    # check (one all-gather of one digest a rank): the sweeps and steps issue none
+    check_only = {"all_reduce": 0, "all_gather": 1, "gathered_elements": 2}
+    for r, p in enumerate(parts):
+        if p["rats"]["carried"] != [P26_CHAINS // 2] or p["mh"]["carried"] != P26_CHAINS // 2:
+            raise RuntimeError(f"rank {r} carried {p['rats']['carried']} rats chains and "
+                               f"{p['mh']['carried']} MH chains, not {P26_CHAINS // 2}")
+        for run in ("rats", "mh"):
+            if p[run]["collectives"] != check_only:
+                raise RuntimeError(f"rank {r}'s {run} run issued {p[run]['collectives']}")
+            if p[run]["k2_launches"] <= 0:
+                raise RuntimeError(f"rank {r}'s {run} run launched no K2 kernel")
     a, b = parts[0]["param"], parts[1]["param"]
     if not (a["finite"] and a["acceptance"] > 0.3 and a["steps_with_mixed_leaps"] > 0):
         raise RuntimeError(f"param-sharded HMC: {a}")
@@ -2236,17 +2380,338 @@ def run_two_ranks_on_one_card(device="cuda"):
     k1 = check_k1(CHAINS // 2, DIM, N_DATA, timed=True)
     res = {
         "ranks_seconds": ranks_seconds,
-        "seconds_by_run": {k: [p[k]["seconds"] for p in parts] for k in ("mala", "rats", "param")},
+        "seconds_by_run": {k: [p[k]["seconds"] for p in parts]
+                           for k in ("mala", "rats", "mh", "param")},
         "mala_k1_launches_per_rank": [p["mala"]["k1_launches"] for p in parts],
         "mala_k1_launches_one_process": ref_mala["k1_launches"],
         "mala_acceptance": ref_mala["acceptance"],
         "rats_k1_launches_per_rank": [p["rats"]["k1_launches"] for p in parts],
+        "rats_k2_launches_per_rank": [p["rats"]["k2_launches"] for p in parts],
+        "mh_k2_launches_per_rank": [p["mh"]["k2_launches"] for p in parts],
+        "rats_carried_per_rank": [p["rats"]["carried"] for p in parts],
+        "collectives_per_rank": {run: [p[run]["collectives"] for p in parts]
+                                 for run in ("rats", "mh")},
+        "mh_acceptance": ref_mh["acceptance"],
         "param": {k: v for k, v in a.items() if k != "mean"},
         "k1_c8192": {"ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": bound_ms,
                      "bound_by": bound_by, "max_abs_err": k1["max_abs_err"]},
         "phase_seconds": time.perf_counter() - t_phase,
     }
     print(f"# phase 26 (two gloo ranks on one card): {json.dumps(res)}", flush=True)
+    return res
+
+
+# ------------------------------------------------ phase 27: K2, keyed draws
+def _k2_reset():
+    """Zero K2's launch counters (before a path's run)."""
+    from klara_tpu_torch.ops import keyed
+
+    keyed.KERNEL_LAUNCHES = 0
+    keyed.LAUNCHES_BY_MODE = {m: 0 for m in keyed.MODES}
+
+
+def _k2_launches():
+    from klara_tpu_torch.ops import keyed
+
+    return keyed.KERNEL_LAUNCHES
+
+
+def _ulps(a, b):
+    """|a − b| in units of b's last place."""
+    mag = b.abs()
+    return (a - b).abs() / (torch.nextafter(mag, torch.full_like(mag, math.inf)) - mag)
+
+
+_K2_PROBE = r"""
+#include "{source}"
+extern "C" __global__ void k2_probe_philox(uint4* o, const long long* key, unsigned c1,
+                                           unsigned c2, unsigned c3) {{
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned long long kk = (unsigned long long)*key;
+  const Words w = philox(i, c1, c2, c3, (uint32_t)kk, (uint32_t)(kk >> 32));
+  o[i] = make_uint4(w.x, w.y, w.z, w.w);
+}}
+extern "C" __global__ void k2_probe_base(uint4* o, const long long* key, unsigned c1,
+                                         unsigned c2, unsigned c3) {{
+  const unsigned i = blockIdx.x * blockDim.x + threadIdx.x;
+  const unsigned long long kk = (unsigned long long)*key;
+  o[i] = make_uint4(i, c1, (uint32_t)kk, (uint32_t)(kk >> 32));
+}}
+"""
+
+
+def _sass_counts(text):
+    """{function: {opcode: count}} from ``cuobjdump -sass`` (NOPs, which pad
+    the code after its end, left out)."""
+    out, fn = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if m:
+            fn = out.setdefault(m.group(1), {})
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and fn is not None and m.group(1) != "NOP":
+            fn[m.group(1)] = fn.get(m.group(1), 0) + 1
+    return out
+
+
+def k2_philox_sass():
+    """The SASS of one Philox4x32-10 call as K2 compiles it: K2's source
+    included in a probe with two kernels that load the run key from memory
+    as K2 does (so the key schedule runs per thread), one storing a call's
+    four words and one storing the counter and key words, built with K2's
+    flags; the difference of their instructions by pipe.  ``ops_per_call`` is the
+    call's least issue time in INT32-lane units: the larger of its FMA-pipe
+    and its ALU-pipe instructions (64 lanes an SM each) and half of all its
+    instructions (128 issues an SM); each instruction counted once, and
+    those whose pipe is not certain (VIADD, the uniform datapath's) only in
+    the issue total, so that the bound stays a floor."""
+    from klara_tpu_torch.ops import _build
+
+    nvcc = _build._nvcc()
+    tools = [os.path.join(os.path.dirname(nvcc), "cuobjdump")]
+    with contextlib.suppress(ImportError):
+        import triton
+
+        tools.append(os.path.join(os.path.dirname(triton.__file__), "backends", "nvidia", "bin",
+                                  "cuobjdump"))
+    cuobjdump = next((t for t in tools if os.path.exists(t)), None)
+    if cuobjdump is None:
+        raise RuntimeError(f"no cuobjdump at {tools}: K2's bound cannot be counted")
+    tmp = tempfile.mkdtemp(prefix="klara_k2_sass_")
+    try:
+        src = os.path.join(tmp, "probe.cu")
+        with open(src, "w") as f:
+            f.write(_K2_PROBE.format(source=os.path.join(_build.CSRC, "keyed_draws.cu")))
+        cubin = os.path.join(tmp, "probe.cubin")
+        flags = [f for f in _build.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC",
+                                                           "-Xptxas", "-v")]
+        subprocess.run([nvcc, *flags, *_build.EXTRA_FLAGS["keyed_draws"], "-cubin", "-o", cubin,
+                        src], check=True, capture_output=True, text=True, timeout=300)
+        text = subprocess.run([cuobjdump, "-sass", cubin], check=True, capture_output=True,
+                              text=True, timeout=120).stdout
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = _sass_counts(text)
+    philox, base = counts["k2_probe_philox"], counts["k2_probe_base"]
+    diff = {op: philox.get(op, 0) - base.get(op, 0) for op in set(philox) | set(base)}
+    diff = {op: n for op, n in sorted(diff.items()) if n}
+
+    def pipe(names):
+        return sum(n for op, n in diff.items() if op.split(".")[0] in names)
+
+    fma, alu, total = pipe(SASS_FMA_PIPE), pipe(SASS_ALU_PIPE), sum(diff.values())
+    out = {"opcodes": diff, "fma_pipe": fma, "alu_pipe": alu, "total": total,
+           "ops_per_call": max(fma, alu, total / 2)}
+    print(f"# K2 Philox call in SASS (probe minus base): {json.dumps(out)}", flush=True)
+    return out
+
+
+def k2_bound_ms(n_elements, n_calls, elem_bytes, ops_per_call):
+    """The least time the card could take for a keyed draw of ``n_elements``
+    values that makes ``n_calls`` Philox calls in all (this run's data: the
+    rejection loops' calls counted), and which limit sets it: the Philox
+    calls' SASS instructions at the pipes' rates (``k2_philox_sass``), or
+    the output's bytes (the parameters are numbers passed by value) over the
+    memory rate.  The transforms' floating-point work (the logs, the cosine,
+    lgamma; FP64 in the Poisson and binomial modes) is not counted, so for
+    the rejection modes the true floor lies above this bound."""
+    ops_ms = 1e3 * n_calls * ops_per_call / INT32_OPS_PER_S
+    bytes_ms = 1e3 * n_elements * elem_bytes / HBM_BYTES_PER_S
+    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+
+
+def _k2_compare(stream, mode, dtype, p0=None, p1=None, shape=None):
+    """K2 against its plain version on the card, same key and counters:
+    uniforms bit for bit, normals within ``K2_NORMAL_ULP``, gamma, Poisson
+    and binomial on the same attempt in all but ``K2_OTHER_ATTEMPT_SHARE``
+    of the elements and there within ``K2_GAMMA_RTOL`` (gamma) or equal.  A
+    parameter may be a Python number (the kernel's scalar branch)."""
+    from klara_tpu_torch.ops import keyed
+
+    m = keyed.MODES[mode]
+    shape = shape or (stream.chains,) + K2_COMPARE_SHAPE[1:]
+    kv, kc = keyed.draws(stream, m, shape, dtype, p0, p1, want_calls=True)
+    pv, pc, _ = keyed.draws_reference(stream, m, shape, dtype, p0, p1)
+    torch.cuda.synchronize()
+    out = {"mode": mode, "dtype": str(dtype).split(".")[-1], "elements": kv.numel(),
+           "params": [p for p in (p0, p1) if p is not None and not torch.is_tensor(p)]}
+    same = (kc == pc) & (kc > 0) if mode in ("gamma", "poisson", "binomial") else kc == pc
+    fails = []
+    if not bool(same.any()):
+        fails.append("no element drawn on the same attempt")
+    diff = (kv - pv)[same]
+    out["max_abs_err"] = float(diff.abs().max()) if diff.numel() else math.inf
+    if mode == "uniform":
+        out["bitwise"] = torch.equal(kv, pv)
+        if not out["bitwise"]:
+            fails.append("uniforms differ")
+    elif mode == "normal":
+        out["max_ulps"] = float(_ulps(kv, pv).max())
+        out["bitwise_share"] = float((kv == pv).double().mean())
+        if out["max_ulps"] > K2_NORMAL_ULP:
+            fails.append(f"normals {out['max_ulps']} ulp apart")
+    else:
+        out["other_attempt_share"] = 1.0 - float(same.double().mean())
+        out["bitwise_share"] = float((kv[same] == pv[same]).double().mean())
+        out["max_calls"] = int(kc.max())
+        if not bool(torch.equal(kc > 0, pc > 0)):
+            fails.append("the versions disagree on which elements are drawn")
+        if out["other_attempt_share"] > K2_OTHER_ATTEMPT_SHARE:
+            fails.append(f"{out['other_attempt_share']} of the elements on another attempt")
+        if mode == "gamma":
+            rel = (diff.abs() / pv[same].abs()).max()
+            out["max_rel_err"] = float(rel)
+            if out["max_rel_err"] > K2_GAMMA_RTOL[dtype]:
+                fails.append(f"gamma relative error {out['max_rel_err']}")
+        elif diff.numel() and float(diff.abs().max()) != 0.0:
+            fails.append(f"{mode} draws on the same attempt differ")
+    print(f"# K2 vs plain: {json.dumps(out)}", flush=True)
+    if fails:
+        raise RuntimeError(f"K2 {mode} {dtype}: " + "; ".join(fails))
+    return out
+
+
+def _k2_grid_params(mode, shape, device="cuda"):
+    """Per-element parameters cycling through phase 27's grid."""
+    n = math.prod(shape)
+    if mode == "gamma":
+        vals = [torch.tensor(K2_ALPHAS)]
+    elif mode == "poisson":
+        vals = [torch.tensor(K2_LAMBDAS)]
+    elif mode == "binomial":
+        vals = [torch.tensor([float(n_) for n_, _ in K2_BINOMIALS]),
+                torch.tensor([p for _, p in K2_BINOMIALS])]
+    else:
+        return ()
+    idx = torch.arange(n) % vals[0].numel()
+    return tuple(v[idx].reshape(shape).to(device) for v in vals)
+
+
+def _k2_moments(stream):
+    """Mean and variance of 10^6 kernel draws per grid point against the
+    exact ones, within ``K2_MOMENT_Z`` standard errors (Var s² = (μ4 − σ⁴
+    (n−3)/(n−1)) / n)."""
+    import scipy.stats as st
+    from klara_tpu_torch.ops import keyed
+
+    grid = [("uniform", (), st.uniform()), ("normal", (), st.norm())]
+    grid += [("gamma", (a,), st.gamma(a)) for a in K2_ALPHAS]
+    grid += [("poisson", (lam,), st.poisson(lam)) for lam in K2_LAMBDAS]
+    grid += [("binomial", (float(n_), p), st.binom(n_, p)) for n_, p in K2_BINOMIALS]
+    out, worst = [], 0.0
+    for j, (mode, params, dist) in enumerate(grid):
+        dtypes = (torch.float32, torch.float64) if mode in ("uniform", "normal", "gamma") \
+            else (torch.float32,)
+        for dtype in dtypes:
+            x = keyed.draws(stream.at(chains=K2_MOMENT_SHAPE[0], step=j,
+                                      part=int(dtype == torch.float64)),
+                            keyed.MODES[mode], K2_MOMENT_SHAPE, dtype, *params)[0].double()
+            n = x.numel()
+            mean, var, kurt = (float(v) for v in dist.stats(moments="mvk"))
+            mu4 = (kurt + 3.0) * var * var
+            z_mean = abs(float(x.mean()) - mean) / math.sqrt(var / n)
+            z_var = abs(float(x.var()) - var) / math.sqrt((mu4 - var * var * (n - 3) / (n - 1)) / n)
+            worst = max(worst, z_mean, z_var)
+            out.append({"mode": mode, "params": list(params), "dtype": str(dtype).split(".")[-1],
+                        "z_mean": z_mean, "z_var": z_var, "finite": bool(torch.isfinite(x).all())})
+    print(f"# K2 moments, {math.prod(K2_MOMENT_SHAPE)} draws a grid point: {json.dumps(out)}",
+          flush=True)
+    bad = [r for r in out if not r["finite"] or max(r["z_mean"], r["z_var"]) > K2_MOMENT_Z]
+    if bad:
+        raise RuntimeError(f"K2 moments off the exact ones: {bad}")
+    return worst
+
+
+def _k2_library(mode, shape, gen, params):
+    """torch's own call for the same distribution and shape (a yardstick;
+    the port never calls it)."""
+    if mode == "uniform":
+        return lambda: torch.rand(shape, generator=gen, device=gen.device)
+    if mode == "normal":
+        return lambda: torch.randn(shape, generator=gen, device=gen.device)
+    full = [torch.full(shape, float(p), device=gen.device) for p in params]
+    if mode == "gamma":
+        return lambda: torch._standard_gamma(full[0], generator=gen)
+    if mode == "poisson":
+        return lambda: torch.poisson(full[0], generator=gen)
+    return lambda: torch.binomial(full[0], full[1], generator=gen)
+
+
+def _k2_calls_made(mode, calls, params):
+    """The Philox calls a timed draw made: ``calls`` holds one past each
+    element's last call index, and a gamma at α ≥ 1 skips call 0 (the α < 1
+    boost's uniform)."""
+    n = int(calls.sum())
+    if mode == "gamma" and params[0] >= 1:
+        n -= int((calls > 0).sum())
+    return n
+
+
+def _k2_times(stream, gen, ops_per_call):
+    """Each mode at ``K2_TIME_SHAPES`` with ``K2_TIME_PARAMS`` (f32): K2, its
+    plain version, torch's own call, and the bound from the Philox calls
+    this run's elements made (``ops_per_call``: ``k2_philox_sass``)."""
+    from klara_tpu_torch.ops import keyed
+
+    out = {}
+    for mode, params in K2_TIME_PARAMS.items():
+        out[mode] = {}
+        m = keyed.MODES[mode]
+        for label, shape in K2_TIME_SHAPES.items():
+            s = stream.at(chains=shape[0])
+            _, calls = keyed.draws(s, m, shape, torch.float32, *params, want_calls=True)
+            n_calls = _k2_calls_made(mode, calls, params)
+            bound, by = k2_bound_ms(math.prod(shape), n_calls, 4, ops_per_call)
+            out[mode][label] = {
+                "ms": _time_ms(lambda: keyed.draws(s, m, shape, torch.float32, *params)),
+                "plain_ms": _time_ms(lambda: keyed.draws_reference(s, m, shape, torch.float32,
+                                                                   *params),
+                                     iters=3, warmup=1),
+                "library_ms": _time_ms(_k2_library(mode, shape, gen, params)),
+                "bound_ms": bound, "bound_by": by, "philox_calls": n_calls,
+            }
+    print(f"# K2 times (ms, f32): {json.dumps(out)}", flush=True)
+    return out
+
+
+def run_keyed_draws(device="cuda"):
+    """Phase 27: K2 against its plain version on the card in every mode and
+    both types (the f64 uniforms bit for bit hold Philox words 0-1, the f64
+    normals words 0-3), and gamma at the rats sweep's scalar shapes; the
+    moments of 10^6 draws per grid point against the exact ones; the
+    overflow counter at 0; the Philox call's SASS; the times."""
+    from klara_tpu_torch.ops import keyed
+
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(27)
+    stream = keyed.KeyedStream(keyed.run_key(gen, device), K2_COMPARE_SHAPE[0], offset=12288,
+                               step=5, site=2)
+    compared = []
+    for dtype in (torch.float32, torch.float64):
+        for mode in keyed.MODES:
+            params = _k2_grid_params(mode, K2_COMPARE_SHAPE, device)
+            compared.append(_k2_compare(stream.at(site=3 + keyed.MODES[mode]), mode, dtype,
+                                        *params))
+        for j, alpha in enumerate(K2_RATS_ALPHAS):
+            compared.append(_k2_compare(stream.at(site=10 + j), "gamma", dtype, alpha,
+                                        shape=K2_RATS_GAMMA_SHAPE))
+    worst_z = _k2_moments(stream.at(site=20))
+    sass = k2_philox_sass()
+    times = _k2_times(stream.at(site=30), gen, sass["ops_per_call"])
+    torch.cuda.synchronize()
+    overflow = int(keyed.overflow_counter(device)[0])
+    if overflow:
+        raise RuntimeError(f"K2's overflow counter reads {overflow}")
+    keyed._PENDING.clear()
+    res = {"seconds": time.perf_counter() - t_phase, "philox_sass": sass,
+           "rats_gamma": [c for c in compared if c["params"]],
+           "max_abs_err": max(c["max_abs_err"] for c in compared if c["mode"] != "uniform"),
+           "max_normal_ulps": max(c["max_ulps"] for c in compared if c["mode"] == "normal"),
+           "max_other_attempt_share": max(c.get("other_attempt_share", 0.0) for c in compared),
+           "worst_moment_z": worst_z, "overflow": overflow, "times": times}
+    print(f"# phase 27 (K2 keyed draws): {json.dumps({k: v for k, v in res.items() if k != 'times'})}",
+          flush=True)
     return res
 
 
@@ -2276,8 +2741,9 @@ def main():
     from klara_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
-    _build.load()
-    print(f"# K1 build: {time.perf_counter() - t0:.1f} s", flush=True)
+    _build.build()
+    print(f"# K1 and K2 build (one nvcc each, in parallel): {time.perf_counter() - t0:.1f} s",
+          flush=True)
     print("# " + _build.build_log.strip().replace("\n", "\n# "), flush=True)
 
     small = check_k1(5, 7, 300)
@@ -2285,6 +2751,10 @@ def main():
     mid = check_k1(SMALL_CHAINS, DIM, N_DATA, timed=True)
     big = check_k1(CHAINS, DIM, N_DATA, timed=True, single_pass=True)
     check_k1_against_float64()
+    if "--keyed-only" in sys.argv:
+        run_keyed_draws()
+        print(card)
+        return
     if "--stage1-sensitivity" in sys.argv:
         stage1_sensitivity()
         print(card)
@@ -2322,8 +2792,12 @@ def main():
     raw = run_nuts_raw()
     gibbs, gjob, gchains, gv0, ggen = run_gibbs_rats()
     check_gibbs_no_host_read(gjob, gchains, gv0, ggen)
-    if profile_dir:
-        profile_gibbs(gjob, gchains, gv0, ggen, profile_dir)
+    # kernels and K2 launches per conjugate sweep (84.6-85.0 kernels with torch's own draws)
+    gprof = profile_gibbs(gjob, gchains, gv0, ggen, profile_dir,
+                          *((200, 20) if profile_dir else (GIBBS_PROFILE_SWEEPS, 5)))
+    print(f"# phase 9 per sweep: {gprof['device_kernels_per_sweep']} kernels "
+          f"({gprof['k2_kernels_per_sweep']} K2), {gibbs['ms_per_sweep']} ms of the run's wall, "
+          f"{gprof['device_busy_us_per_sweep']} us of device time", flush=True)
     nested = run_gibbs_nested(gibbs["by_key"])
     zoo = run_zoo_logreg(x_end, chees_summary)
     ars = run_zoo_ars()
@@ -2333,6 +2807,7 @@ def main():
     examples, ex_summary = run_examples()
     meshed = run_meshed_main_path(chees, chees_fingerprint)
     two_ranks = run_two_ranks_on_one_card()
+    keyed_draws = run_keyed_draws()
 
     by_path = {"chees_precond": chees["k1_launches"], "nuts_precond": nuts["k1_launches"],
                "nuts_looped": looped["k1_launches"], "nuts": raw["k1_launches"],
@@ -2372,6 +2847,15 @@ def main():
                    "io_resume_mala": io_resume["k1_max_abs_err_on_path"],
                    **{f"ex_{k}": examples[k]["k1_max_abs_err_on_path"] for k in K1_EXAMPLES},
                    "chees_precond_mesh1": meshed["k1_max_abs_err_on_path"]}
+    # K2 draws the Gibbs conditionals and the MH proposal distributions
+    k2_by_path = {"gibbs_rats": gibbs["k2_launches"], "gibbs_rats_nested": nested["k2_launches"],
+                  "io_gibbs_csv": io_gibbs["k2_launches"],
+                  **{f"ex_{k}": examples[k]["k2_launches"] for k in K2_EXAMPLES},
+                  **{f"{run}_two_ranks_rank{r}": n for run in ("rats", "mh")
+                     for r, n in enumerate(two_ranks[f"{run}_k2_launches_per_rank"])}}
+    for path, n in k2_by_path.items():
+        if n <= 0:
+            raise RuntimeError(f"the {path} path launched no K2 kernel")
     # 3 TF32 passes x 2 products x 2*C*N*D operations over 495 TFLOP/s: 0.041 ms at the
     # main shape; the 13.6 MB of compulsory traffic would take 0.004 ms
     bound_ms, bound_by = k1_bound_ms(CHAINS, DIM, N_DATA)
@@ -2406,6 +2890,23 @@ def main():
         "ms_c8192": two_ranks["k1_c8192"]["ms"],
         "plain_ms_c8192": two_ranks["k1_c8192"]["plain_ms"],
         "bound_ms_c8192": two_ranks["k1_c8192"]["bound_ms"],
+    }, {
+        "name": "K2 keyed_draws",
+        "route": "cuda",
+        "source": "klara_tpu_torch/ops/csrc/keyed_draws.cu",
+        # no Pallas kernel: the counterpart of the JAX package's per-chain keys
+        "replaces": None,
+        "counterpart": "klara_tpu/jobs/job.py:609, klara_tpu/jobs/gibbs.py:328",
+        "launches": sum(k2_by_path.values()),
+        "launches_by_path": k2_by_path,
+        "launches_by_mode_gibbs_rats": gibbs["k2_launches_by_mode"],
+        "max_abs_err": keyed_draws["max_abs_err"],
+        "max_normal_ulps": keyed_draws["max_normal_ulps"],
+        "max_other_attempt_share": keyed_draws["max_other_attempt_share"],
+        # the main path's launch: a normal draw at the rats alpha/beta blocks' shape
+        **{k: keyed_draws["times"]["normal"]["c4096_e30"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "by_mode": keyed_draws["times"],
     }]}
     print(json.dumps(kernels))
     print(card)

@@ -4,8 +4,13 @@ klara_tpu/distributions/core.py).
 Each distribution is a frozen dataclass whose parameters are Python numbers
 or tensors that broadcast like numpy arrays (right-aligned), so a Gibbs full
 conditional built from batch-first values carries the chains axis in its
-parameters.  ``sample(generator, shape=())`` draws on the generator's device
-from an explicit ``torch.Generator``.
+parameters.  ``sample(rng, shape=())`` draws from ``rng``: a
+``torch.Generator`` (on its device), or a ``KeyedStream``
+(``ops.keyed``: per-chain keyed draws, the chains on axis 0 of the sample
+shape; what ``GibbsJob`` and ``MH`` hand it, so that a rank draws only its
+own chains).  A keyed Gamma with a scalar shape parameter and a vector rate
+draws one element per chain, as the JAX package's per-chain key does: the
+element counter runs over the per-chain draw, not over the broadcast value.
 
 Sample shapes follow the JAX package's rule for each class (Normal: the
 broadcast of loc and scale; Gamma, InverseGamma, Beta: the shape parameter
@@ -31,6 +36,8 @@ import math
 from typing import Any
 
 import torch
+
+from klara_tpu_torch.ops.keyed import KeyedStream
 
 
 def _dist(cls):
@@ -71,7 +78,20 @@ def _kw(generator, dtype):
     return dict(generator=generator, device=generator.device, dtype=dtype)
 
 
+def _keyed(rng) -> bool:
+    return isinstance(rng, KeyedStream)
+
+
+def _rand(rng, shape, dtype):
+    """U(0, 1) of ``shape`` from a generator or a keyed stream."""
+    if _keyed(rng):
+        return rng.uniform(shape, dtype)
+    return torch.rand(tuple(shape), **_kw(rng, dtype))
+
+
 def _standard_gamma(generator, a, shape, dtype):
+    if _keyed(generator):
+        return generator.standard_gamma(a, shape, dtype)
     if torch.is_tensor(a):
         alpha = a.to(dtype).expand(shape).contiguous()
     else:
@@ -104,7 +124,15 @@ class Distribution:
     def logpdf(self, x):  # pragma: no cover - interface
         raise NotImplementedError
 
-    def sample(self, generator, shape=()):  # pragma: no cover - interface
+    def sample(self, rng, shape=()):  # pragma: no cover - interface
+        """A draw of ``shape``.  ``rng`` is a ``torch.Generator`` or, where
+        ``GibbsJob`` or ``MH`` hand it (a conditional, a proposal
+        distribution), a ``KeyedStream`` (``ops.keyed``), which is not a
+        generator: a subclass draws through its methods ``uniform(shape,
+        dtype)``, ``normal(shape, dtype)``, ``standard_gamma(alpha, shape,
+        dtype)``, ``poisson(rate, shape, dtype)`` and ``binomial(count,
+        prob, shape, dtype)``, each with the chains on axis 0 of ``shape``
+        (float32 or float64; parameters on the stream's device)."""
         raise NotImplementedError
 
 
@@ -121,10 +149,11 @@ class Normal(Distribution):
     def logpdf(self, x):
         return _norm_logpdf(x, _t(self.loc, x), _t(self.scale, x))
 
-    def sample(self, generator, shape=(), noise=None):
+    def sample(self, rng, shape=(), noise=None):
         if noise is None:
             shape = _draw_shape(shape, _shape(self.loc), _shape(self.scale))
-            noise = torch.randn(shape, **_kw(generator, _fdtype(self.loc, self.scale)))
+            dt = _fdtype(self.loc, self.scale)
+            noise = rng.normal(shape, dt) if _keyed(rng) else torch.randn(shape, **_kw(rng, dt))
         return self.loc + self.scale * noise
 
     def _bshape(self):
@@ -147,8 +176,8 @@ class LogNormal(Distribution):
         lp = -torch.log(safe) + _norm_logpdf(torch.log(safe), _t(self.mu, x), _t(self.sigma, x))
         return torch.where(x > 0, lp, -math.inf)
 
-    def sample(self, generator, shape=(), noise=None):
-        return torch.exp(Normal(self.mu, self.sigma).sample(generator, shape, noise))
+    def sample(self, rng, shape=(), noise=None):
+        return torch.exp(Normal(self.mu, self.sigma).sample(rng, shape, noise))
 
     def mean(self):
         return torch.exp(_tensor(self.mu) + 0.5 * torch.square(_tensor(self.sigma)))
@@ -164,9 +193,9 @@ class Uniform(Distribution):
         inside = (x >= low) & (x <= high)
         return torch.where(inside, -torch.log(high - low), -math.inf)
 
-    def sample(self, generator, shape=(), noise=None):
+    def sample(self, rng, shape=(), noise=None):
         if noise is None:
-            noise = torch.rand(tuple(shape), **_kw(generator, _fdtype(self.low, self.high)))
+            noise = _rand(rng, shape, _fdtype(self.low, self.high))
         return self.low + (self.high - self.low) * noise
 
     def mean(self):
@@ -181,11 +210,14 @@ class Exponential(Distribution):
         rate = _t(self.rate, x)
         return torch.where(x >= 0, torch.log(rate) - rate * x, -math.inf)
 
-    def sample(self, generator, shape=(), noise=None):
+    def sample(self, rng, shape=(), noise=None):
         if noise is None:
-            noise = torch.empty(
-                tuple(shape), dtype=_fdtype(self.rate), device=generator.device
-            ).exponential_(generator=generator)
+            if _keyed(rng):  # −log U, U on (0, 1): finite and positive
+                noise = -torch.log(rng.uniform(shape, _fdtype(self.rate)))
+            else:
+                noise = torch.empty(
+                    tuple(shape), dtype=_fdtype(self.rate), device=rng.device
+                ).exponential_(generator=rng)
         return noise / self.rate
 
     def mean(self):
@@ -201,11 +233,14 @@ class Laplace(Distribution):
         loc, scale = _t(self.loc, x), _t(self.scale, x)
         return -(torch.abs(x - loc) / scale + torch.log(2.0 * scale))
 
-    def sample(self, generator, shape=(), noise=None):
+    def sample(self, rng, shape=(), noise=None):
         if noise is None:
             dt = _fdtype(self.loc, self.scale)
-            lo = -1.0 + torch.finfo(dt).eps / 2  # jax.random.laplace's open interval
-            u = lo + (1.0 - lo) * torch.rand(tuple(shape), **_kw(generator, dt))
+            if _keyed(rng):  # 2U − 1 on (−1, 1)
+                u = 2.0 * rng.uniform(shape, dt) - 1.0
+            else:
+                lo = -1.0 + torch.finfo(dt).eps / 2  # jax.random.laplace's open interval
+                u = lo + (1.0 - lo) * torch.rand(tuple(shape), **_kw(rng, dt))
             noise = torch.sign(u) * torch.log1p(-torch.abs(u))
         return self.loc + self.scale * noise
 
@@ -226,9 +261,9 @@ class Gamma(Distribution):
         lp = a * torch.log(r) - torch.lgamma(a) + (a - 1.0) * torch.log(safe) - r * safe
         return torch.where(x > 0, lp, -math.inf)
 
-    def sample(self, generator, shape=(), noise=None):
+    def sample(self, rng, shape=(), noise=None):
         if noise is None:
-            noise = _standard_gamma(generator, self.shape, _draw_shape(shape, _shape(self.shape)),
+            noise = _standard_gamma(rng, self.shape, _draw_shape(shape, _shape(self.shape)),
                                     _fdtype(self.shape, self.rate))
         return noise / self.rate
 
@@ -247,9 +282,9 @@ class InverseGamma(Distribution):
         lp = a * torch.log(b) - torch.lgamma(a) - (a + 1.0) * torch.log(safe) - b / safe
         return torch.where(x > 0, lp, -math.inf)
 
-    def sample(self, generator, shape=(), noise=None):
+    def sample(self, rng, shape=(), noise=None):
         if noise is None:
-            noise = _standard_gamma(generator, self.shape, _draw_shape(shape, _shape(self.shape)),
+            noise = _standard_gamma(rng, self.shape, _draw_shape(shape, _shape(self.shape)),
                                     _fdtype(self.shape, self.scale))
         return self.scale / noise
 
@@ -269,11 +304,12 @@ class Beta(Distribution):
         lp = torch.where((x > 1) | (x < 0), -math.inf, lp)
         return torch.where((a <= 0) | (b <= 0), math.nan, lp)
 
-    def sample(self, generator, shape=()):
+    def sample(self, rng, shape=()):
         shape = _draw_shape(shape, _shape(self.a))
         dt = _fdtype(self.a, self.b)
-        ga = _standard_gamma(generator, self.a, shape, dt)
-        gb = _standard_gamma(generator, self.b, shape, dt)
+        ga = _standard_gamma(rng, self.a, shape, dt)
+        # a keyed stream's second gamma draw takes part 1 of its counter
+        gb = _standard_gamma(rng.at(part=1) if _keyed(rng) else rng, self.b, shape, dt)
         return ga / (ga + gb)
 
     def mean(self):
@@ -326,11 +362,11 @@ class TruncatedNormal(Distribution):
         lp = _norm_logpdf(x, _t(self.loc, x), _t(self.scale, x)) - self.lognormaliser().to(x.device)
         return torch.where(inside, lp, -math.inf)
 
-    def sample(self, generator, shape=(), noise=None):
+    def sample(self, rng, shape=(), noise=None):
         dt = _fdtype(self.loc, self.scale, self.low, self.high)
         shape = _draw_shape(shape, _shape(self.loc))
         if noise is None:
-            noise = torch.rand(shape, **_kw(generator, dt))
+            noise = _rand(rng, shape, dt)
         a, b = (torch.as_tensor(v, device=noise.device) for v in self._alpha_beta())
         return (self.loc + self.scale * truncated_standard_normal(a, b, noise)).to(dt)
 
@@ -342,17 +378,27 @@ class TruncatedNormal(Distribution):
         return self.loc + self.scale * num / den
 
 
-def draw_per_chain(dist, like, generator, noise=None):
+def draw_per_chain(dist, like, rng, noise=None):
     """One draw per chain from ``dist`` at the shape and dtype of the
     batch-first value ``like`` (C, ...): the sample shape (C, 1, …) keeps
-    each class's shape rule within a chain.  ``noise`` replays the standard
-    draw.  It knows no mesh: under ``parallel.mesh``'s draw rule its caller
-    hands it the distribution of every chain (``draw_for_all_chains``)."""
+    each class's shape rule within a chain.  ``rng`` is a generator or a
+    ``KeyedStream`` for the C chains of ``like`` (on a mesh: the rank's
+    block, named by their global indices); ``noise`` replays the standard
+    draw."""
     shape = (like.shape[0],) + (1,) * (like.dim() - 1 - dist.event_dims)
     if noise is None:
-        draw = dist.sample(generator, shape)
+        try:
+            draw = dist.sample(rng, shape)
+        except (TypeError, AttributeError) as e:
+            if not _keyed(rng) or type(dist).__module__ == __name__:
+                raise
+            raise TypeError(
+                f"{type(dist).__name__}.sample was handed a KeyedStream, not a "
+                "torch.Generator, and could not use it: draw through the stream's "
+                "uniform, normal, standard_gamma, poisson or binomial (see "
+                "Distribution.sample)") from e
     else:
-        draw = dist.sample(generator, shape, noise=noise)
+        draw = dist.sample(rng, shape, noise=noise)
     return draw.reshape(like.shape).to(like.dtype)
 
 
@@ -396,10 +442,13 @@ class MvNormal(Distribution):
         logdet = torch.log(torch.abs(torch.diagonal(self.chol, dim1=-2, dim2=-1))).sum(-1)
         return -0.5 * torch.square(w).sum(-1) - logdet - 0.5 * self.dim * math.log(2.0 * math.pi)
 
-    def sample(self, generator, shape=(), noise=None):
+    def sample(self, rng, shape=(), noise=None):
         if noise is None:
             batch = _draw_shape(shape, tuple(self.loc.shape[:-1]), tuple(self.chol.shape[:-2]))
-            noise = torch.randn(batch + (self.dim,), **_kw(generator, self.loc.dtype))
+            if _keyed(rng):
+                noise = rng.normal(batch + (self.dim,), self.loc.dtype)
+            else:
+                noise = torch.randn(batch + (self.dim,), **_kw(rng, self.loc.dtype))
         return self.loc + torch.matmul(self.chol, noise.unsqueeze(-1)).squeeze(-1)
 
     def mean(self):
@@ -424,10 +473,10 @@ class Dirichlet(Distribution):
         simplex = (x > 0).all(-1) & (torch.abs(x.sum(-1) - 1.0) < 1e-6)
         return torch.where(simplex, lp, -math.inf)
 
-    def sample(self, generator, shape=()):
+    def sample(self, rng, shape=()):
         k = self.alpha.shape[-1]
         shape = _draw_shape(shape, tuple(self.alpha.shape[:-1])) + (k,)
-        g = _standard_gamma(generator, self.alpha, shape, self.alpha.dtype)
+        g = _standard_gamma(rng, self.alpha, shape, self.alpha.dtype)
         return g / g.sum(-1, keepdim=True)
 
     def mean(self):
@@ -447,10 +496,9 @@ class Bernoulli(Distribution):
         p = _t(self.p, x)
         return torch.where(x == 1, torch.log(p), torch.log1p(-p))
 
-    def sample(self, generator, shape=()):
+    def sample(self, rng, shape=()):
         shape = _draw_shape(shape, _shape(self.p))
-        u = torch.rand(shape, **_kw(generator, _fdtype(self.p)))
-        return (u < self.p).to(torch.int32)
+        return (_rand(rng, shape, _fdtype(self.p)) < self.p).to(torch.int32)
 
     def mean(self):
         return _tensor(self.p)
@@ -478,10 +526,10 @@ class Binary(Distribution):
     def pdf(self, x):
         return torch.exp(self.logpdf(x))
 
-    def sample(self, generator, shape=()):
+    def sample(self, rng, shape=()):
         shape = _draw_shape(shape, _shape(self.p))
-        coin = torch.rand(shape, **_kw(generator, _fdtype(self.p))) < self.p
-        a, b = (torch.as_tensor(v, device=generator.device) for v in (self.a, self.b))
+        coin = _rand(rng, shape, _fdtype(self.p)) < self.p
+        a, b = (torch.as_tensor(v, device=rng.device) for v in (self.a, self.b))
         out = torch.where(coin, b, a)
         # JAX's 32-bit defaults: Python ints give int32, floats f32
         if out.dtype == torch.int64:
@@ -508,13 +556,15 @@ class Binomial(Distribution):
         lp = comb + xf * torch.log(p) + (n - xf) * torch.log1p(-p)
         return torch.where((xf >= 0) & (xf <= n), lp, -math.inf)
 
-    def sample(self, generator, shape=()):
+    def sample(self, rng, shape=()):
         shape = _draw_shape(shape, _shape(self.n), _shape(self.p))
         dt = torch.get_default_dtype()
-        kw = dict(dtype=dt, device=generator.device)
+        if _keyed(rng):
+            return rng.binomial(self.n, self.p, shape, dt).to(torch.int32)
+        kw = dict(dtype=dt, device=rng.device)
         count = torch.as_tensor(self.n, **kw).expand(shape).contiguous()
         prob = torch.as_tensor(self.p, **kw).expand(shape).contiguous()
-        return torch.binomial(count, prob, generator=generator).to(torch.int32)
+        return torch.binomial(count, prob, generator=rng).to(torch.int32)
 
     def mean(self):
         return _tensor(self.n * self.p)
@@ -530,11 +580,13 @@ class Poisson(Distribution):
         lp = xf * torch.log(rate) - rate - torch.lgamma(xf + 1)
         return torch.where(xf >= 0, lp, -math.inf)
 
-    def sample(self, generator, shape=()):
+    def sample(self, rng, shape=()):
         shape = _draw_shape(shape, _shape(self.rate))
-        kw = dict(dtype=torch.get_default_dtype(), device=generator.device)
+        if _keyed(rng):
+            return rng.poisson(self.rate, shape, torch.get_default_dtype()).to(torch.int32)
+        kw = dict(dtype=torch.get_default_dtype(), device=rng.device)
         rate = torch.as_tensor(self.rate, **kw).expand(shape).contiguous()
-        return torch.poisson(rate, generator=generator).to(torch.int32)
+        return torch.poisson(rate, generator=rng).to(torch.int32)
 
     def mean(self):
         return _tensor(self.rate)

@@ -22,7 +22,13 @@ A conditional draw is one independent draw per chain at the carried
 value's shape, even from a distribution whose parameters are all
 constants; within a chain it keeps the JAX package's shape rule (a Gamma
 with a scalar shape parameter and a vector rate shares one gamma draw
-across the vector).  The draw is cast to the carried value's dtype.
+across the vector).  The draw is cast to the carried value's dtype.  Every
+conditional, and every ``reset_from_prior`` start, draws from the run's
+keyed stream (``ops.keyed.KeyedStream``, kernel K2 on the card) at counter
+(sweep, block): the counterpart of the JAX package's
+``fold_in(fold_in(chain_key, sweep), block)``.  The stream's key is drawn
+once per ``run`` or ``resume`` from the generator; nested samplers draw
+from the generator.
 
 Sweeps run in a Python loop.  A variable with ``'csv'`` outopts streams to
 its own directory: its saved draws gather in a ring of ``stream_chunk`` rows
@@ -36,15 +42,16 @@ blocks under dual averaging take their initial ε from one step-size search
 per run, against the initial conditionals.
 
 With ``mesh`` the chains split over the mesh dimension ``chains_axis`` as in
-``MCJob``, and the traces equal the one-process run's.  Under
-``parallel.mesh``'s draw rule every conditional is drawn for the global
-chains, and how many numbers a gamma, Poisson or binomial draw takes depends
-on its parameters: so on a split mesh every rank carries the values of all
-``n_chains`` chains, runs the conjugate sweep for all of them (R times the
-work, no collective) and keeps its block in the traces and final values.  A
-nested block runs on the rank's block and all-gathers its new value (one
-all-gather per nested block per sweep); its batch-max leap count is the
-rank's own (the loop is masked per chain and runs no collective).
+``MCJob``, and the traces equal the one-process run's.  Each rank carries
+only its block of the chains: a keyed draw names a chain by its global
+index, so the rank draws exactly its own chains and the conjugate sweep
+issues no collective.  Nested blocks follow ``parallel.mesh``'s draw rule
+on the rank's block; a nested block's batch-max leap count is the rank's
+own (the loop is masked per chain and runs no collective).  ``v0``'s
+carried values hold no chains axis; ``resume`` takes final values of the
+global chains (a reloaded checkpoint, or a one-process run: each rank cuts
+its block once) or of this rank's (``parallel.mesh.take_block``, which
+decides by the leading length alone).
 """
 
 from __future__ import annotations
@@ -61,11 +68,11 @@ from klara_tpu_torch.distributions.core import draw_per_chain
 from klara_tpu_torch.io.stream import DrawRing, StreamingWriter
 from klara_tpu_torch.jobs.range import MCRange
 from klara_tpu_torch.models.graph import Data, GenericModel, GibbsParameter, Transformation
+from klara_tpu_torch.ops.keyed import KeyedStream, raise_on_overflow
 from klara_tpu_torch.parallel.mesh import (
     chain_block,
     chain_context,
     check_generators,
-    gather_chains,
     no_csv_across_processes,
     take_block,
 )
@@ -242,14 +249,6 @@ class GibbsJob:
             and isinstance(spec.tuner, DualAveragingTuner)
         )
 
-    def _mine(self, values: Dict[str, Any]) -> Dict[str, Any]:
-        """This rank's block of the carried values (``values`` itself unless
-        the chains split over ranks)."""
-        if self._block is None or not self._block.split:
-            return values
-        carry = set(self._carry_keys())
-        return {k: take_block(v, self._block) if k in carry else v for k, v in values.items()}
-
     def _hoist_step_sizes(self, values: Dict[str, Any], generator):
         """Per-chain (C,) step sizes for nested blocks, searched once per
         run against the initial conditionals and reused by every sweep."""
@@ -264,17 +263,14 @@ class GibbsJob:
             out[hk] = find_reasonable_step_size(target, values[hk], generator)
         return out
 
-    def _nested_update(self, var, spec: Nested, values, generator, step_size):
+    def _nested_update(self, var, spec: Nested, values, generator, stream, step_size):
         """``n_steps`` sampler steps on the conditional of ``var`` from ε =
-        ``step_size`` (None: the sampler's own start), on this rank's chains;
-        the new value is every chain's."""
-        mine = self._mine(values)
-        x0 = mine[var.key]
+        ``step_size`` (None: the sampler's own start)."""
+        x0 = values[var.key]
         if spec.reset_from_prior:
-            x0 = take_block(draw_per_chain(var.setprior(values), values[var.key], generator),
-                            self._block)
+            x0 = draw_per_chain(var.setprior(values), x0, stream)
         # conditional target given the CURRENT values of all others
-        frozen = dict(mine)
+        frozen = dict(values)
         target = Target(logdensity_fn=lambda x: var.conditional_logdensity(x, frozen))
         state = spec.sampler.init(target, x0, generator, step_size=step_size, tuner=spec.tuner)
         acc = torch.zeros(x0.shape[0], dtype=torch.float32, device=x0.device)
@@ -287,32 +283,44 @@ class GibbsJob:
                     tune=spec.tuner.update(state.tune, accept, stat, spec.burnin)
                 )
             acc = acc + accept
-        return gather_chains(state.position), {f"{var.key}.accept": acc / spec.n_steps}
+        return state.position, {f"{var.key}.accept": acc / spec.n_steps}
 
-    def _block_update(self, var, values, generator, hoisted, noise=None):
+    def _block_update(self, var, values, generator, stream, hoisted, noise=None):
         """One block of the sweep: (new value, diagnostics dict)."""
         if isinstance(var, Transformation):
             return var.transform(values), {}
         if var.key in self.sweep:
             spec = self.sweep[var.key]
             step_size = spec.step_size if spec.step_size is not None else hoisted.get(var.key)
-            return self._nested_update(var, spec, values, generator, step_size)
+            return self._nested_update(var, spec, values, generator, stream, step_size)
         if var.setpdf is None:
             raise ValueError(
                 f"parameter {var.key!r} needs either a setpdf full conditional "
                 "or a Nested sweep entry"
             )
-        return draw_per_chain(var.setpdf(values), values[var.key], generator, noise), {}
+        return draw_per_chain(var.setpdf(values), values[var.key], stream, noise), {}
 
-    def _sweep(self, values, generator, hoisted, noise=None):
-        """One full sweep over all chains: (updated values, diagnostics).
-        ``noise`` ({key: standard draw}) replays conditional draws."""
+    def _stream(self, generator, device) -> KeyedStream:
+        """The run's keyed stream over this rank's chains on the values'
+        ``device``, its key drawn from ``generator`` (a generator on another
+        device raises: the draws never move to it)."""
+        offset = 0 if self._block is None else self._block.offset
+        return KeyedStream.for_run(generator, device, self._local_chains, offset)
+
+    def _sweep(self, values, generator, hoisted, noise=None, stream=None, sweep=0):
+        """One full sweep over this rank's chains: (updated values,
+        diagnostics).  Conditional block b draws from ``stream`` (default: a
+        fresh one from ``generator``) at counter (``sweep``, b); ``noise``
+        ({key: standard draw}) replays conditional draws."""
+        if stream is None:
+            stream = self._stream(generator, self._device_of(values))
         values, diags = dict(values), {}
         for u in self._updatable:  # Data.update hooks fire before any block
             values[u.key] = u.update(values)
-        for var in self._dependents:
+        for b, var in enumerate(self._dependents):
             values[var.key], d = self._block_update(
-                var, values, generator, hoisted, None if noise is None else noise.get(var.key)
+                var, values, generator, stream.at(step=sweep, site=b), hoisted,
+                None if noise is None else noise.get(var.key)
             )
             diags.update(d)
         return values, diags
@@ -333,17 +341,16 @@ class GibbsJob:
 
     def _initial_values(self, v0: Dict[str, Any], prebatched: bool):
         """Every value on the run's device, the carried ones with a leading
-        axis of every chain (already there when ``prebatched``)."""
+        axis of this rank's chains (``prebatched``: cut from the global
+        chains, or already the rank's)."""
         device = self._device_of(v0)
         carry = set(self._carry_keys())
         values = {}
         for k, v in v0.items():
             t = _as_tensor(v, device)
             if k in carry:
-                # a resumed value holds the global chains (a reloaded
-                # checkpoint) or this rank's, which are gathered
-                t = gather_chains(take_block(t, self._block)) if prebatched else t.expand(
-                    (self.n_chains,) + tuple(t.shape)).clone()
+                t = take_block(t, self._block) if prebatched else t.expand(
+                    (self._local_chains,) + tuple(t.shape)).clone()
             values[k] = t
         return values
 
@@ -352,7 +359,6 @@ class GibbsJob:
         burnin, thinning = self.mcrange.burnin, self.mcrange.thinning
         n_post = self.mcrange.n_post
         values = self._initial_values(v0, prebatched)
-        mine = self._mine(values)
         device = self._device_of(values)
         dep_keys = [v.key for v in self._dependents]
         diag_keys = (
@@ -367,8 +373,8 @@ class GibbsJob:
             return v.dtype
 
         buffers = {
-            k: torch.empty((n_post,) + tuple(mine[k].shape), dtype=buf_dtype(mine[k]),
-                           device=mine[k].device)
+            k: torch.empty((n_post,) + tuple(values[k].shape), dtype=buf_dtype(values[k]),
+                           device=values[k].device)
             for k in self.monitor
             if self._opts[k]["destination"] == "nstate"
         }
@@ -376,28 +382,28 @@ class GibbsJob:
             k: torch.empty((n_post, self._local_chains), dtype=torch.float32, device=device)
             for k in diag_keys
         }
-        hoisted = self._hoist_step_sizes(mine, generator)
+        stream = self._stream(generator, device)
+        hoisted = self._hoist_step_sizes(values, generator)
         n_steps, ring = self.mcrange.n_steps, self._ring
         for i in range(n_steps):
-            values, diags = self._sweep(values, generator, hoisted)
+            values, diags = self._sweep(values, generator, hoisted, stream=stream, sweep=i)
             if i >= burnin and (i - burnin) % thinning == 0:
                 j = (i - burnin) // thinning
-                mine = self._mine(values)
                 for k, buf in buffers.items():
-                    buf[j].copy_(mine[k])
+                    buf[j].copy_(values[k])
                 for k, buf in diag_buffers.items():
                     buf[j].copy_(diags[k])
                 if ring is not None:
-                    ring.save({k: mine[k] for k in self._csv_keys})
+                    ring.save({k: values[k] for k in self._csv_keys})
             if ring is not None and ((i + 1) % ring.rows == 0 or i + 1 == n_steps):
                 count, host = ring.take()
                 if count:
                     for k in self._csv_keys:
                         self._writers[k].append_block(count, {k: host[k]})
-        mine = self._mine(values)
+        raise_on_overflow()
         return GibbsChains(
             samples=buffers,
-            final_values={k: mine[k] for k in self._carry_keys()},
+            final_values={k: values[k] for k in self._carry_keys()},
             diagnostics=diag_buffers,
             mesh=self.mesh,
             chains_axis=self.chains_axis,

@@ -28,9 +28,14 @@ chains split over the mesh dimension ``chains_axis``: ``n_chains`` stays the
 global count, each rank runs its own contiguous block of chains, and the
 run's cross-chain reductions (pooled tuning, ensemble mass, ChEES, the
 ensemble covariance, the pooled initial step) all-reduce over that
-dimension's group.  Draws follow ``parallel.mesh``'s draw rule, so a chain's
+dimension's group.  Draws follow ``parallel.mesh``'s draw rule (an MH
+proposal distribution draws from a keyed stream instead, which the job
+keys once per ``run``, ``resume`` or ``run_phased`` from the generator and
+hands to the sampler's step with the step's index), so a chain's
 draws do not depend on the number of ranks; every rank must be handed a
-generator seeded alike (checked once per ``run`` or ``resume``).
+generator seeded alike (checked once per ``run`` or ``resume``).  A run
+whose sampler made keyed draws on the card reads their overflow counter
+once at its end (``ops.keyed.raise_on_overflow``).
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from klara_tpu_torch.io.stream import DrawRing, StreamingWriter
 from klara_tpu_torch.jobs.chain import Chain
 from klara_tpu_torch.jobs.gibbs import _as_tensor
 from klara_tpu_torch.jobs.range import MCRange
+from klara_tpu_torch.ops.keyed import KeyedStream, raise_on_overflow
 from klara_tpu_torch.parallel.mesh import (
     active_block,
     chain_block,
@@ -422,12 +428,24 @@ class MCJob:
             and getattr(s, "dynamic_nleaps", False)
         )
 
-    def _loop(self, states, generator, start, stop, adapt, buffers=None, ring=None):
+    def _stream(self, generator, states):
+        """The run's keyed stream over this rank's chains, keyed from
+        ``generator`` (one draw), for a sampler whose step takes one; else
+        None."""
+        if not getattr(self.sampler, "keyed", False):
+            return None
+        x = states.position
+        offset = 0 if self._block is None else self._block.offset
+        return KeyedStream.for_run(generator, x.device, x.shape[0], offset)
+
+    def _loop(self, states, generator, start, stop, adapt, buffers=None, ring=None,
+              stream=None):
         """Steps [start, stop).  Saved draws go to ``buffers`` (device traces)
         and ``ring`` (a csv stream, handed to the writer after every chunk
         of ``ring.rows`` steps and at ``stop``).  With shared ('step')
         jitter one draw per step scales every chain's λ through a temporary
-        log_traj offset, so all chains run the same leap count."""
+        log_traj offset, so all chains run the same leap count.  A keyed
+        sampler draws from ``stream`` at step i."""
         sampler, target = self.sampler, self.target
         burnin, thinning = self.mcrange.burnin, self.mcrange.thinning
         shared = self._shared_jitter()
@@ -441,7 +459,8 @@ class MCJob:
                                dtype=lt_saved.dtype)
                 frac_shared = jitter_fraction(u, sampler.jitter)
                 states = states._replace(log_traj=lt_saved + torch.log(frac_shared))
-            states, infos = step_sampler.step(states, target, generator)
+            kw = {} if stream is None else {"stream": stream.at(step=i)}
+            states, infos = step_sampler.step(states, target, generator, **kw)
             if shared:
                 states = states._replace(log_traj=lt_saved)
             if adapt:
@@ -528,7 +547,9 @@ class MCJob:
         buffers = ({}, {})
         keep = self.destination == "nstate" or self._buffered_csv
         states = self._loop(states, generator, 0, self.mcrange.n_steps, True,
-                            buffers if keep else None, self._ring)
+                            buffers if keep else None, self._ring,
+                            self._stream(generator, states))
+        raise_on_overflow()
         return self._squeeze(self._finish_output(self._chain(buffers, states)))
 
     @property
@@ -569,17 +590,20 @@ class MCJob:
         t0 = time.perf_counter()
         with chain_context(self._block):
             states = self._init_states(generator, x0)
+            stream = self._stream(generator, states)
             burnin = self.mcrange.burnin
             if burnin > 0:
-                states = self._loop(states, generator, 0, burnin, True)
+                states = self._loop(states, generator, 0, burnin, True, stream=stream)
                 if hasattr(states, "tune") and not self.sampler.self_tuning:
                     states = states._replace(tune=self.tuner.finalize(states.tune))
             _sync(device)
             t1 = time.perf_counter()
             buffers = ({}, {})
             states = self._loop(states, generator, burnin, self.mcrange.n_steps, False,
-                                buffers if self.destination == "nstate" else None)
+                                buffers if self.destination == "nstate" else None,
+                                stream=stream)
         _sync(device)
+        raise_on_overflow()
         t2 = time.perf_counter()
         chain = self._squeeze(self._chain(buffers, states))
         return chain, {"warmup_seconds": t1 - t0, "sampling_seconds": t2 - t1}

@@ -1,10 +1,12 @@
 """Build the hand-written CUDA kernels with nvcc and load them with ctypes.
 
-The sources are ``csrc/*.cu``; the shared library goes to ``_build/`` beside
-this file (listed in ``.gitignore``).  The build happens at first use, in
-the process that first launches a kernel, and again whenever a source is
-newer than the library.  Nothing here runs at import time, so the package
-imports on a machine without ``nvcc``.
+Each source ``csrc/<name>.cu`` becomes its own shared library
+``_build/lib<name>.so`` beside this file (listed in ``.gitignore``), with
+the flags of ``NVCC_FLAGS`` and that source's ``EXTRA_FLAGS``.  ``build``
+starts one nvcc per missing or stale library, all at once, and waits for
+them; it runs at first use, in the process that first launches a kernel,
+and again whenever a source is newer than its library.  Nothing here runs
+at import time, so the package imports on a machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -18,13 +20,24 @@ import subprocess
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-LIB_PATH = os.path.join(BUILD_DIR, "libklara_kernels.so")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# K2 rounds every multiply and add apart, as its plain version does
+EXTRA_FLAGS = {"keyed_draws": ("-fmad=false",)}
 
-_lib = None
+_P, _I, _U, _D, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_double,
+                      ctypes.c_longlong)
+# each library's entry point and its C signature
+ENTRY = {
+    "logreg": ("klara_logreg_value_grad_tf32", [_P] * 6 + [_I] * 5 + [ctypes.c_float] * 2 + [_P]),
+    "keyed_draws": ("klara_keyed_draws",
+                    [_I, _I, _P, _P, _P, _P, _P, _U, _U, _U, _I, _I,
+                     _P, _D, _L, _L, _P, _D, _L, _L, _P]),
+}
+
+_libs = {}
 build_log = ""  # nvcc's output of the last build in this process (-Xptxas -v)
 
 
@@ -35,42 +48,52 @@ def _nvcc() -> str:
     return path
 
 
-def _stale(sources) -> bool:
-    if not os.path.exists(LIB_PATH):
-        return True
-    built = os.path.getmtime(LIB_PATH)
-    return any(os.path.getmtime(s) > built for s in sources)
+def lib_path(name: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}.so")
 
 
-def build() -> str:
-    """Compile ``csrc/*.cu`` into one shared library if it is missing or
-    stale; return its path.  A failed build raises."""
+def _stale(name: str, source: str) -> bool:
+    path = lib_path(name)
+    return not os.path.exists(path) or os.path.getmtime(source) > os.path.getmtime(path)
+
+
+def build() -> dict:
+    """Compile every missing or stale ``csrc/*.cu``, one nvcc each, all
+    started together; return {name: library path}.  A failed build raises."""
     global build_log
-    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
-    if not _stale(sources):
-        return LIB_PATH
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, LIB_PATH)
-    build_log = proc.stdout + proc.stderr
-    return LIB_PATH
+    sources = {os.path.basename(s)[:-3]: s for s in sorted(glob.glob(os.path.join(CSRC, "*.cu")))}
+    todo = {n: s for n, s in sources.items() if _stale(n, s)}
+    if todo:
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        procs = {}
+        for name, src in todo.items():
+            tmp = f"{lib_path(name)}.{os.getpid()}.tmp"
+            cmd = [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o", tmp, src]
+            procs[name] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                 stderr=subprocess.STDOUT, text=True))
+        logs, failed = [], []
+        for name, (tmp, proc) in procs.items():
+            out = proc.communicate()[0]
+            logs.append(f"[{name}]\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"{name} (nvcc exit {proc.returncode}):\n{out}")
+            else:
+                os.replace(tmp, lib_path(name))
+        build_log = "\n".join(logs)
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    return {n: lib_path(n) for n in sources}
 
 
-def load() -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        fn = lib.klara_logreg_value_grad_tf32
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-            ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-        ]
+def load(name: str = "logreg") -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, the kernels built first if
+    needed."""
+    if name not in _libs:
+        paths = build()
+        lib = ctypes.CDLL(paths[name])
+        symbol, argtypes = ENTRY[name]
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[name] = lib
+    return _libs[name]

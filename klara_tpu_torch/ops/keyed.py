@@ -1,0 +1,567 @@
+"""Per-chain keyed random draws: kernel K2 and its plain PyTorch version.
+
+The JAX package gives every chain a key of its own
+(``jax.random.split(run_key, n_chains)``, klara_tpu/jobs/job.py and
+jobs/gibbs.py) and folds the sweep and the block into it, so a device draws
+only its own chains and a chain's numbers do not depend on how the chains
+are split.  Here a draw is a pure function of the run key and a counter
+that names the chain by its global index, so a rank draws exactly its own
+chains, whatever the parameters of the draw.  K2 replaces no Pallas kernel:
+it is the counterpart of those keys.
+
+Generator: Philox4x32-10 (Salmon, Moraes, Dror & Shaw, "Parallel random
+numbers: as easy as 1, 2, 3", SC'11), with the Random123 constants.  The key
+is the run key, two 32-bit words: the low and the high half of one int64
+drawn once per run from the run's ``torch.Generator`` (``run_key``; it stays
+on the device, so no host read).  The counter is four words:
+
+    c0 = the chain's global index
+    c1 = the step (the Gibbs sweep, or the count of MH proposals), mod 2^32
+    c2 = site << 8 | part   (site < 2^24: the Gibbs block's index, or
+                             ``MH_SITE``; part < 256: 0, or 1 for the
+                             second gamma draw of a Beta)
+    c3 = element << 12 | call   (element < 2^20: the index within the
+                                 chain's draw; call < 2^12: the element's
+                                 Philox call)
+
+Distinct (chain, step, site, part, element, call) are distinct counters, so
+no two numbers of a run share a (key, counter) pair.  A thread owns one
+element and makes the calls its own draw needs:
+
+- uniform on (0, 1): call 0; f32 from the top 24 bits of word 0, f64 from
+  53 bits of words 0-1 (27 + 26), a zero replaced by half the spacing;
+- normal: Box-Muller, sqrt(-2 log u1) cos(2 pi u2), from call 0 (f32: words
+  0 and 1; f64: words 0-1 and 2-3);
+- standard gamma(a): Marsaglia & Tsang (ACM TOMS 2000) in the output type,
+  attempt t from call 1 + t (f32: x from words 0-1, u from word 2) or calls
+  1 + 2t and 2 + 2t (f64); for a < 1 the draw of gamma(a + 1) times
+  exp(log(u)/a), u from call 0; the result at least the type's smallest
+  normal number, as ``torch._standard_gamma`` and ``jax.random.gamma``
+  return it;
+- Poisson(lam), in f64: inversion below lam = 10 (attempt t: call t), and
+  Hormann's PTRS (1993) at and above it (attempt t: call t, U from words
+  0-1, V from words 2-3);
+- binomial(n, p), in f64: p > 1/2 reflected to q = 1 - p; where n q < 10 the
+  sum of geometric draws (uniform j from call j >> 1, words 0-1 or 2-3),
+  else Hormann's BTRS (attempt t: call t).
+
+n = 0 or p = 0 gives exactly 0 and p = 1 exactly n; an invalid parameter
+gives NaN.  An element whose rejection loop reaches its cap
+(``MAX_ATTEMPTS`` attempts, ``BINOMIAL_INV_MAX`` uniforms) is written as
+NaN and counted in a counter on the device; ``raise_on_overflow`` reads it
+(one host read, at the end of a run) and raises.  The plain version raises
+at once.
+
+The plain version (``draws_reference``) computes the same Philox words in
+int64 arithmetic (the 32 x 32 products split into 16-bit halves, since
+int64 overflows past 2^63) and the same transforms in the same order of
+operations; it is what CPU tensors take, and what ``chip_smoke.py`` holds
+the kernel to on the card.  Bound on the H100: the SASS instructions of
+its Philox calls, issued at the FMA and ALU pipes' 64 lanes and the
+schedulers' 128 issues per SM and clock (``chip_smoke.py`` counts them from
+``cuobjdump -sass`` of K2's own code), or its bytes (the output and the
+parameters, once each), the larger.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+UNIFORM, NORMAL, GAMMA, POISSON, BINOMIAL = range(5)
+MODES = {"uniform": UNIFORM, "normal": NORMAL, "gamma": GAMMA, "poisson": POISSON,
+         "binomial": BINOMIAL}
+_MODE_NAMES = {v: k for k, v in MODES.items()}
+MH_SITE = (1 << 24) - 1  # the MH proposal's site (Gibbs blocks count from 0)
+MAX_ATTEMPTS = 64        # rejection attempts: gamma, PTRS, BTRS, Poisson inversion restarts
+POISSON_INV_MAX_K = 100  # an inversion search past k = 100 restarts
+BINOMIAL_INV_MAX = 1024  # uniforms of one geometric-sum binomial draw
+MAX_ELEMENTS = 1 << 20   # elements of one chain's draw
+CALL_BITS = 12
+
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85
+_MASK = 0xFFFFFFFF
+_TWO_PI = 2.0 * math.pi
+
+# K2 launches in this process (plain counters; reset them by assignment).
+# Incremented only where the kernel is launched.
+KERNEL_LAUNCHES = 0
+LAUNCHES_BY_MODE = {name: 0 for name in MODES}
+
+_OVERFLOW = {}     # device -> int32 (1,) count of elements that hit their cap
+_PENDING = set()   # devices with launches since the last raise_on_overflow
+
+
+# ------------------------------------------------------------------ Philox
+def philox4x32(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 on int64 tensors (or ints) holding 32-bit words; the
+    key words are ints (or 0-d tensors).  A round's two 32 x 32 products run
+    as one product of the lanes (c2, c0) with (M1, M0), each split at 16
+    bits of the multiplier so that no partial product passes 2^48:
+    a·m = p1·2^16 + p0, t = p1 + (p0 >> 16), hi = t >> 16,
+    lo = ((t mod 2^16) << 16) | (p0 mod 2^16)."""
+    k0, k1 = int(k0), int(k1)
+    words = [torch.as_tensor(c, dtype=torch.int64) for c in (c0, c1, c2, c3)]
+    device = next((w.device for w in words if w.dim()), words[0].device)
+    shape = torch.broadcast_shapes(*(w.shape for w in words))
+    ones = (1,) * len(shape)
+    even = torch.empty((2,) + shape, dtype=torch.int64, device=device)  # (c0, c2)
+    odd = torch.empty_like(even)                                        # (c1, c3)
+    even[0], even[1], odd[0], odd[1] = (w.to(device) for w in (words[0], words[2], words[1],
+                                                               words[3]))
+    mult = torch.tensor([[_M1 & 0xFFFF, _M0 & 0xFFFF], [_M1 >> 16, _M0 >> 16]],
+                        dtype=torch.int64, device=device).view((2, 2) + ones)
+    keys = torch.tensor([[(k0 + r * _W0) & _MASK, (k1 + r * _W1) & _MASK] for r in range(10)],
+                        dtype=torch.int64, device=device).view((10, 2) + ones)
+    for r in range(10):
+        p0, p1 = (even.flip(0) * mult).unbind(0)  # (c2, c0) times (M1, M0), low and high halves
+        t = p0 >> 16
+        t += p1
+        hi = t >> 16
+        t &= 0xFFFF
+        t <<= 16
+        p0 &= 0xFFFF
+        t |= p0
+        # c0' = hi(c2·M1) ^ c1 ^ k0, c2' = hi(c0·M0) ^ c3 ^ k1, c1' = lo(c2·M1), c3' = lo(c0·M0)
+        hi ^= odd
+        hi ^= keys[r]
+        even, odd = hi, t
+    return even[0], odd[0], even[1], odd[1]
+
+
+def _u01f(w):
+    """f32 on (0, 1) from the top 24 bits of a word."""
+    return ((w >> 8).to(torch.float32) * 2.0**-24).clamp_min(2.0**-25)
+
+
+def _u01d(a, b):
+    """f64 on (0, 1) from 53 bits of two words."""
+    m = ((a >> 5) << 26) | (b >> 6)
+    return (m.to(torch.float64) * 2.0**-53).clamp_min(2.0**-54)
+
+
+def _normal(w, f64: bool):
+    """Box-Muller's cosine branch from one call's words."""
+    if f64:
+        u1, u2 = _u01d(w[0], w[1]), _u01d(w[2], w[3])
+    else:
+        u1, u2 = _u01f(w[0]), _u01f(w[1])
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(u2 * _TWO_PI)
+
+
+def _uniform(w, f64: bool):
+    return _u01d(w[0], w[1]) if f64 else _u01f(w[0])
+
+
+def _rdiv(s: float, t):
+    """s / t in one rounding, as the kernel divides (``s / t`` on a tensor
+    is ``t.reciprocal() * s``, two roundings)."""
+    return torch.full_like(t, s) / t
+
+
+def _same_device(a, b) -> bool:
+    a, b = torch.device(a), torch.device(b)
+    return a.type == b.type and (a.index is None or b.index is None or a.index == b.index)
+
+
+def check_device(what, device, stream_device) -> None:
+    """Raise unless ``device`` is ``stream_device``: keyed draws never move
+    their inputs between the host and the card."""
+    if not _same_device(device, stream_device):
+        raise ValueError(f"keyed draws: {what} is on {device}, the draws on {stream_device}")
+
+
+def run_key(generator, device):
+    """A run key: one int64 (both key words) drawn from ``generator`` (None:
+    the device's default generator) on ``device``, kept there.  A generator
+    on another device raises."""
+    if generator is not None:
+        check_device("the generator", generator.device, device)
+    return torch.randint(-2**63, 2**63 - 1, (), dtype=torch.int64, generator=generator,
+                         device=device)
+
+
+# ------------------------------------------------------------------ stream
+@dataclasses.dataclass(frozen=True)
+class KeyedStream:
+    """Keyed draws for ``chains`` chains whose first has the global index
+    ``offset``, at counter (``step``, ``site``, ``part``).  ``key`` is a 0-d
+    int64 tensor (``run_key``) on the draws' device; ``step`` a number or a
+    0-d int64 tensor on that device.  Every draw's shape has the chains on
+    axis 0; the element counter runs over the rest of it."""
+
+    key: torch.Tensor
+    chains: int
+    offset: int = 0
+    step: Any = 0
+    site: int = 0
+    part: int = 0
+
+    @classmethod
+    def for_run(cls, generator, device, chains: int, offset: int = 0):
+        """A stream on ``device`` keyed by a fresh run key from ``generator``
+        (which must be on ``device``)."""
+        return cls(run_key(generator, device), chains, offset)
+
+    @property
+    def device(self):
+        return self.key.device
+
+    def at(self, **kw) -> "KeyedStream":
+        """The stream at another ``step``, ``site``, ``part`` or chain count."""
+        return dataclasses.replace(self, **kw)
+
+    def uniform(self, shape, dtype=torch.float32):
+        return self._draw(UNIFORM, shape, dtype)
+
+    def normal(self, shape, dtype=torch.float32):
+        return self._draw(NORMAL, shape, dtype)
+
+    def standard_gamma(self, alpha, shape, dtype=torch.float32):
+        return self._draw(GAMMA, shape, dtype, alpha)
+
+    def poisson(self, rate, shape, dtype=torch.float32):
+        return self._draw(POISSON, shape, dtype, rate)
+
+    def binomial(self, count, prob, shape, dtype=torch.float32):
+        return self._draw(BINOMIAL, shape, dtype, count, prob)
+
+    def _draw(self, mode, shape, dtype, p0=None, p1=None):
+        return draws(self, mode, shape, dtype, p0, p1)[0]
+
+
+def _counter(stream: KeyedStream, shape, dtype, params=()):
+    shape = tuple(int(s) for s in shape)
+    for p in params:
+        if torch.is_tensor(p):
+            check_device("a parameter", p.device, stream.device)
+    if torch.is_tensor(stream.step):
+        check_device("the step", stream.step.device, stream.device)
+    if not shape or shape[0] != stream.chains:
+        raise ValueError(f"keyed draw of shape {shape}: axis 0 is not the stream's "
+                         f"{stream.chains} chains")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"keyed draws are float32 or float64, not {dtype}")
+    elems = math.prod(shape[1:])
+    if elems >= MAX_ELEMENTS:
+        raise ValueError(f"keyed draw of {elems} elements per chain: at most {MAX_ELEMENTS - 1}")
+    if not 0 <= stream.site < MH_SITE + 1 or not 0 <= stream.part < 256:
+        raise ValueError(f"site {stream.site} or part {stream.part} out of range")
+    if stream.offset < 0 or stream.offset + stream.chains > 2**32:
+        raise ValueError(f"chains [{stream.offset}, {stream.offset + stream.chains}) out of range")
+    return shape, elems, (stream.site << 8) | stream.part
+
+
+def _flat_param(p, shape, dtype, device, work=None):
+    """A parameter (on ``device``) broadcast to ``shape``, flat, in ``dtype``
+    (the kernel's parameter type), then in ``work`` (the type it computes
+    in)."""
+    if torch.is_tensor(p):
+        t = p.to(dtype).expand(shape).reshape(-1)
+    else:
+        t = torch.full(shape, float(p), dtype=dtype, device=device).reshape(-1)
+    return t if work is None else t.to(work)
+
+
+# ----------------------------------------------------------- plain version
+class _Ctx:
+    """The words of the elements ``idx`` (flat indices) at a call."""
+
+    def __init__(self, stream, elems, site_word):
+        key = int(stream.key)  # on the card a host read: the plain version is no path's
+        self.k0, self.k1 = key & _MASK, (key >> 32) & _MASK
+        self.c1 = int(stream.step) & _MASK
+        self.c2, self.elems, self.offset = site_word, elems, stream.offset
+
+    def words(self, idx, call):
+        c0 = self.offset + torch.div(idx, self.elems, rounding_mode="floor")
+        c3 = ((idx % self.elems) << CALL_BITS) | call
+        return philox4x32(c0, self.c1, self.c2, c3, self.k0, self.k1)
+
+
+def draws_reference(stream: KeyedStream, mode, shape, dtype, p0=None, p1=None):
+    """The plain PyTorch version of K2: ``(values, calls, overflow)``, with
+    ``calls`` (int32, the draw's shape) the number of Philox calls each
+    element used (its call indices run below it; 0 for a parameter that
+    needs none, -1 where the cap was reached) and ``overflow`` the count of
+    such elements."""
+    shape, elems, site_word = _counter(stream, shape, dtype, (p0, p1))
+    device, n = stream.device, math.prod(shape)
+    ctx = _Ctx(stream, elems, site_word)
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    f64 = dtype == torch.float64
+    calls = torch.ones(n, dtype=torch.int32, device=device)
+    if mode in (UNIFORM, NORMAL):
+        w = ctx.words(idx, 0)
+        out = _uniform(w, f64) if mode == UNIFORM else _normal(w, f64)
+        return out.reshape(shape), calls.reshape(shape), 0
+    if mode == GAMMA:
+        out = _gamma_ref(ctx, _flat_param(p0, shape, dtype, device), f64, calls)
+    elif mode == POISSON:
+        out = _poisson_ref(ctx, _flat_param(p0, shape, dtype, device, torch.float64), calls)
+    elif mode == BINOMIAL:
+        out = _binomial_ref(ctx, _flat_param(p0, shape, dtype, device, torch.float64),
+                            _flat_param(p1, shape, dtype, device, torch.float64), calls)
+    else:
+        raise ValueError(f"unknown keyed-draw mode {mode}")
+    return out.to(dtype).reshape(shape), calls.reshape(shape), int((calls < 0).sum())
+
+
+def _gamma_ref(ctx, a, f64, calls):
+    dt = a.dtype
+    out = torch.full_like(a, math.nan)
+    valid = (a > 0) & torch.isfinite(a)
+    calls.masked_fill_(~valid, 0)
+    boost = a < 1
+    aa = torch.where(boost, a + 1.0, a)
+    d = aa - 1.0 / 3.0
+    c = _rdiv(1.0, torch.sqrt(9.0 * d))
+    per = 2 if f64 else 1
+    idx = valid.nonzero().squeeze(1)
+    for t in range(MAX_ATTEMPTS):
+        if idx.numel() == 0:
+            break
+        w = ctx.words(idx, 1 + per * t)
+        x = _normal(w, f64)
+        u = _u01d(*ctx.words(idx, 2 + 2 * t)[:2]) if f64 else _u01f(w[2])
+        di, ci = d[idx], c[idx]
+        y = 1.0 + ci * x
+        v = y * y * y
+        xx = x * x
+        ok = (y > 0) & ((u < 1.0 - 0.0331 * xx * xx)
+                        | (torch.log(u) < 0.5 * xx + di * (1.0 - v + torch.log(v))))
+        acc = idx[ok]
+        out[acc] = (di * v)[ok]
+        calls[acc] = 1 + per * (t + 1)
+        idx = idx[~ok]
+    calls[idx] = -1
+    lift = (boost & valid & (calls > 0)).nonzero().squeeze(1)
+    if lift.numel():
+        ub = _uniform(ctx.words(lift, 0), f64)
+        out[lift] = out[lift] * torch.exp(torch.log(ub) / a[lift])
+    done = calls > 0
+    out[done] = out[done].clamp_min(torch.finfo(dt).tiny)
+    return out
+
+
+def _poisson_ref(ctx, lam, calls):
+    out = torch.full_like(lam, math.nan)
+    valid = (lam >= 0) & torch.isfinite(lam)
+    calls.masked_fill_(~valid | (lam == 0), 0)
+    out[valid & (lam == 0)] = 0.0
+    small = (valid & (lam > 0) & (lam < 10)).nonzero().squeeze(1)
+    for t in range(MAX_ATTEMPTS):
+        if small.numel() == 0:
+            break
+        w = ctx.words(small, t)
+        u, L = _u01d(w[0], w[1]), lam[small]
+        p = torch.exp(-L)
+        F, k = p.clone(), torch.zeros_like(p)
+        search = u > F
+        for _ in range(POISSON_INV_MAX_K):
+            if not bool(search.any()):
+                break
+            k = torch.where(search, k + 1.0, k)
+            p = torch.where(search, p * L / k, p)
+            F = torch.where(search, F + p, F)
+            search = search & (u > F)
+        ok = u <= F
+        out[small[ok]] = k[ok]
+        calls[small[ok]] = t + 1
+        small = small[~ok]
+    calls[small] = -1
+
+    big = (valid & (lam >= 10)).nonzero().squeeze(1)
+    L = lam[big]
+    slam, loglam = torch.sqrt(L), torch.log(L)
+    b = 0.931 + 2.53 * slam
+    a = -0.059 + 0.02483 * b
+    invalpha = 1.1239 + _rdiv(1.1328, b - 3.4)
+    vr = 0.9277 - _rdiv(3.6224, b - 2.0)
+    for t in range(MAX_ATTEMPTS):
+        if big.numel() == 0:
+            break
+        w = ctx.words(big, t)
+        U, V = _u01d(w[0], w[1]) - 0.5, _u01d(w[2], w[3])
+        us = 0.5 - torch.abs(U)
+        k = torch.floor((2.0 * a / us + b) * U + L + 0.43)
+        quick = (us >= 0.07) & (V <= vr)
+        bad = (k < 0) | ((us < 0.013) & (V > us))
+        ok = quick | (~bad & (torch.log(V) + torch.log(invalpha) - torch.log(a / (us * us) + b)
+                              <= -L + k * loglam - torch.lgamma(k + 1.0)))
+        out[big[ok]] = k[ok]
+        calls[big[ok]] = t + 1
+        keep = ~ok
+        big, L, loglam, a, b, invalpha, vr = (v[keep] for v in (big, L, loglam, a, b, invalpha,
+                                                                 vr))
+    calls[big] = -1
+    return out
+
+
+_STIRLING_TAIL = (0.0810614667953272, 0.0413406959554092, 0.0276779256849983,
+                  0.02079067210376509, 0.0166446911898211, 0.0138761288230707,
+                  0.0118967099458917, 0.0104112652619720, 0.00925546218271273,
+                  0.00833056343336287)
+
+
+def _stirling_tail(k):
+    """log k! − (k + ½) log(k + 1) + (k + 1) − ½ log 2π, tabulated to 9."""
+    table = torch.tensor(_STIRLING_TAIL, dtype=k.dtype, device=k.device)
+    kp1sq = (k + 1.0) * (k + 1.0)
+    series = (1.0 / 12 - (1.0 / 360 - _rdiv(1.0 / 1260, kp1sq)) / kp1sq) / (k + 1.0)
+    return torch.where(k <= 9, table[k.clamp(0, 9).long()], series)
+
+
+def _binomial_ref(ctx, n, p, calls):
+    out = torch.full_like(n, math.nan)
+    valid = (n >= 0) & torch.isfinite(n) & (p >= 0) & (p <= 1)
+    trivial = valid & ((n == 0) | (p == 0) | (p == 1))
+    calls.masked_fill_(~valid | trivial, 0)
+    out[trivial] = torch.where(p == 1, n, torch.zeros_like(n))[trivial]
+    rest = valid & ~trivial
+    flip = p > 0.5
+    q = torch.where(flip, 1.0 - p, p)
+    k_out = torch.zeros_like(n)
+
+    idx = (rest & (n * q < 10.0)).nonzero().squeeze(1)
+    logq, N = torch.log1p(-q[idx]), n[idx]
+    gsum, k = torch.zeros_like(N), torch.zeros_like(N)
+    for j in range(BINOMIAL_INV_MAX):
+        if idx.numel() == 0:
+            break
+        w = ctx.words(idx, j >> 1)
+        u = _u01d(w[2], w[3]) if j & 1 else _u01d(w[0], w[1])
+        gsum = gsum + torch.ceil(torch.log(u) / logq)
+        done = gsum > N
+        k_out[idx[done]] = k[done]
+        calls[idx[done]] = (j >> 1) + 1
+        keep = ~done
+        idx, logq, N, gsum, k = idx[keep], logq[keep], N[keep], gsum[keep], k[keep] + 1.0
+    calls[idx] = -1
+
+    idx = (rest & (n * q >= 10.0)).nonzero().squeeze(1)
+    N, Q = n[idx], q[idx]
+    stddev = torch.sqrt(N * Q * (1.0 - Q))
+    b = 1.15 + 2.53 * stddev
+    a = -0.0873 + 0.0248 * b + 0.01 * Q
+    c = N * Q + 0.5
+    v_r = 0.92 - _rdiv(4.2, b)
+    r = Q / (1.0 - Q)
+    alpha = (2.83 + _rdiv(5.1, b)) * stddev
+    m = torch.floor((N + 1.0) * Q)
+    for t in range(MAX_ATTEMPTS):
+        if idx.numel() == 0:
+            break
+        w = ctx.words(idx, t)
+        u, v = _u01d(w[0], w[1]) - 0.5, _u01d(w[2], w[3])
+        us = 0.5 - torch.abs(u)
+        k = torch.floor((2.0 * a / us + b) * u + c)
+        quick = (us >= 0.07) & (v <= v_r)
+        bad = (k < 0) | (k > N)
+        lv = torch.log(v * alpha / (a / (us * us) + b))
+        upper = ((m + 0.5) * torch.log((m + 1.0) / (r * (N - m + 1.0)))
+                 + (N + 1.0) * torch.log((N - m + 1.0) / (N - k + 1.0))
+                 + (k + 0.5) * torch.log(r * (N - k + 1.0) / (k + 1.0))
+                 + _stirling_tail(m) + _stirling_tail(N - m)
+                 - _stirling_tail(k) - _stirling_tail(N - k))
+        ok = quick | (~bad & (lv <= upper))
+        k_out[idx[ok]] = k[ok]
+        calls[idx[ok]] = t + 1
+        keep = ~ok
+        idx, N, a, b, c, v_r, r, alpha, m = (x[keep] for x in (idx, N, a, b, c, v_r, r, alpha, m))
+    calls[idx] = -1
+
+    drawn = rest & (calls > 0)
+    out[drawn] = torch.where(flip, n - k_out, k_out)[drawn]
+    return out
+
+
+# ------------------------------------------------------------------ kernel
+def _param_2d(p, shape, dtype):
+    """(tensor or None, scalar, chain stride, element stride) of a parameter
+    broadcast to ``shape`` (C, ...): a view where its non-chain axes
+    collapse to one stride, else a contiguous copy."""
+    if p is None:
+        return None, 0.0, 0, 0
+    if not torch.is_tensor(p):
+        return None, float(p), 0, 0
+    t = p.to(dtype).expand(shape)
+    sc = t.stride(0) if shape[0] > 1 else 0
+    dims = [(n, s) for n, s in zip(t.shape[1:], t.stride()[1:]) if n > 1]
+    if all(s0 == s1 * n1 for (_, s0), (n1, s1) in zip(dims, dims[1:])):
+        return t, 0.0, sc, dims[-1][1] if dims else 0
+    t = t.contiguous()
+    return t, 0.0, t.stride(0) if shape[0] > 1 else 0, 1
+
+
+def overflow_counter(device) -> torch.Tensor:
+    """The device's count of elements that reached their cap (int32 (1,))."""
+    device = torch.device(device)
+    if device not in _OVERFLOW:
+        _OVERFLOW[device] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _OVERFLOW[device]
+
+
+def raise_on_overflow() -> None:
+    """One host read per device with K2 launches since the last call: raise
+    if an element reached the cap of its rejection loop (and reset)."""
+    while _PENDING:
+        count = overflow_counter(_PENDING.pop())
+        n = int(count[0])
+        if n:
+            count.zero_()
+            raise RuntimeError(f"keyed draws: {n} element(s) reached the cap of their "
+                               "rejection loop (written as NaN)")
+
+
+def draws(stream: KeyedStream, mode, shape, dtype, p0=None, p1=None, want_calls=False):
+    """``(values, calls or None)`` of one keyed draw.  CUDA streams launch
+    K2 on the current stream (no synchronisation; the overflow counter
+    stays on the device); CPU streams take ``draws_reference`` and raise at
+    once if an element reached its cap.  A tensor parameter or step on
+    another device than the stream's key raises on either path."""
+    if stream.device.type == "cpu":
+        out, calls, overflow = draws_reference(stream, mode, shape, dtype, p0, p1)
+        if overflow:
+            raise RuntimeError(f"keyed draws: {overflow} element(s) reached the cap of "
+                               "their rejection loop")
+        return out, calls if want_calls else None
+    global KERNEL_LAUNCHES
+    shape, elems, site_word = _counter(stream, shape, dtype, (p0, p1))
+    if mode not in _MODE_NAMES:
+        raise ValueError(f"unknown keyed-draw mode {mode}")
+    device = stream.device
+    from klara_tpu_torch.ops import _build
+
+    lib = _build.load("keyed_draws")
+    out = torch.empty(shape, dtype=dtype, device=device)
+    calls = torch.empty(shape, dtype=torch.int32, device=device) if want_calls else None
+    params = [_param_2d(p, shape, dtype) for p in (p0, p1)]
+    step = stream.step
+    if torch.is_tensor(step):
+        if step.dtype != torch.int64 or step.numel() != 1:
+            raise ValueError("K2: a tensor step is a 0-d int64 on the stream's device")
+        step_ptr, step_add = step.data_ptr(), 0
+    else:
+        step_ptr, step_add = None, int(step) & _MASK
+    if stream.key.dtype != torch.int64 or stream.key.numel() != 1:
+        raise ValueError("K2: the run key is a 0-d int64 tensor (run_key)")
+    with torch.cuda.device(device):
+        rc = lib.klara_keyed_draws(
+            mode, int(dtype == torch.float64), out.data_ptr(),
+            None if calls is None else calls.data_ptr(), overflow_counter(device).data_ptr(),
+            stream.key.data_ptr(), step_ptr, step_add, site_word, stream.offset, shape[0], elems,
+            *(x for (t, s, sc, se) in params
+              for x in (None if t is None else t.data_ptr(), s, sc, se)),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"K2 launch failed: cudaError {rc}")
+    KERNEL_LAUNCHES += 1
+    LAUNCHES_BY_MODE[_MODE_NAMES[mode]] += 1
+    _PENDING.add(device)
+    return out, calls

@@ -18,20 +18,26 @@ step is explicit.  The design:
    ``Chain`` names its mesh.  No DTensor: K1 is a ctypes launch on plain
    tensors, and the samplers' masked loops gain nothing from sharding
    propagation.
-3. The draw rule (``draw_chains``).  A random draw with a chains axis is made
-   at the global chain count on every rank and the rank keeps its block
-   along that axis (axis 0, but axis 1 for NUTS's (J, C) draws).  Every rank
-   is handed a generator seeded alike, so a chain's draws do not depend on
-   the rank count, and every rank's generator advances alike: a replicated
-   draw (the shared jitter) agrees everywhere without a broadcast.  R ranks
-   draw R times the numbers.  A mismatch of generators raises
-   (``check_generators``, one all-gather per run).  Without a split block a
-   draw is exactly what it is without a mesh.  A draw whose use of the
-   generator depends on its parameters (gamma, Poisson, binomial) is made
-   from its per-chain inputs gathered to the global count
-   (``draw_for_all_chains``: an MH proposal distribution); the Gibbs job
-   carries every chain's values on every rank and draws its conditionals
-   for all of them (``jobs/gibbs.py``).
+3. Two rules make a chain's draws independent of the rank count.
+   - The draw rule (``draw_chains``), for the samplers' fixed-count draws
+     from the ``torch.Generator`` (momentum, accept uniforms, the shared
+     jitter, NUTS's directions, the slice sampler's uniforms): a draw with a
+     chains axis is made at the global chain count on every rank and the
+     rank keeps its block along that axis (axis 0, but axis 1 for NUTS's
+     (J, C) draws).  Every rank is handed a generator seeded alike, and
+     every rank's generator advances alike: a replicated draw (the shared
+     jitter) agrees everywhere without a broadcast.  R ranks draw R times
+     the numbers.  A mismatch of generators raises (``check_generators``,
+     one all-gather per run).  Without a split block a draw is exactly what
+     it is without a mesh.
+   - The keyed stream (``ops.keyed.KeyedStream``, kernel K2), for draws
+     from a ``Distribution``: the Gibbs conditionals and ``reset_from_prior``
+     starts, and an MH proposal distribution.  A draw is a function of the
+     run key (drawn from the generator once per run, or once per step by an
+     MH step handed no job's stream; replicated) and a counter holding the
+     chain's global index, so a rank draws exactly its
+     own chains, however many numbers a gamma, Poisson or binomial draw
+     takes, and issues no collective for it.
 4. Reductions.  A cross-chain mean is the all-reduce of each rank's local
    mean weighted by its share of the chains (``mean_over_chains``); a
    variance pools each rank's local mean and variance
@@ -56,9 +62,14 @@ step is explicit.  The design:
    there is no card); NCCL on the card, gloo where the caller asks for the
    CPU or names ``backend="gloo"`` (two ranks on one card: NCCL refuses
    that).  Nothing falls back.
-8. Statistics of a meshed chain are global on every rank: sums over chains
-   all-reduce, statistics that need every chain's draws all-gather them
-   (``stats._common``).
+8. Statistics of a meshed chain are global on every rank.  ``mean``,
+   ``acceptance`` and the chain-summed ``ess`` all-reduce their sums;
+   ``mcvar``, ``mcse``, ``iact`` and per-chain ``ess`` and ``mean`` compute
+   on the rank's chains and all-gather their per-chain results; split-chain
+   ``rhat`` all-gathers per-chain means and variances; only the
+   rank-normalised statistics (``rhat_rank``, ``ess_bulk``, ``ess_tail``)
+   and the zero-variance estimators, which need every draw, all-gather the
+   draws (``stats._common``).
 
 The draws and reductions act on the block of the enclosing
 ``chain_context(block)``, and on no mesh outside one: a job enters it for
@@ -83,8 +94,9 @@ import torch.distributed as dist
 from klara_tpu_torch.core.device import resolve_device
 
 # Collectives issued by this module's helpers in this process (a plain
-# counter, reset by assignment), by kind.
-COLLECTIVES = {"all_reduce": 0, "all_gather": 0}
+# counter, reset by assignment), by kind, and the elements all-gathers
+# brought in from every rank.
+COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "gathered_elements": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -168,20 +180,6 @@ def draw_chains(fn, shape, chains_dim: int = 0):
     return fn(tuple(full)).narrow(chains_dim, b.offset, b.local).contiguous()
 
 
-def draw_for_all_chains(draw, *per_chain):
-    """``draw(*per_chain)`` under the draw rule, for a draw whose use of the
-    generator depends on per-chain inputs (a gamma, Poisson or binomial
-    draw takes a parameter-dependent count of numbers): with a split active
-    block each input, the chains on axis 0, is gathered to the global
-    chains, the draw is made for all of them and this rank keeps its block
-    of the result's axis 0."""
-    b = _ACTIVE.get()
-    if b is None or not b.split:
-        return draw(*per_chain)
-    out = draw(*(all_gather_cat(x, b.group) for x in per_chain))
-    return out.narrow(0, b.offset, b.local).contiguous()
-
-
 # ------------------------------------------------------------- collectives
 def all_reduce(t, group, op=dist.ReduceOp.SUM):
     """``dist.all_reduce`` in place on ``t``, counted; returns ``t``."""
@@ -196,6 +194,7 @@ def all_gather_cat(t, group, dim: int = 0):
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     COLLECTIVES["all_gather"] += 1
+    COLLECTIVES["gathered_elements"] += t.numel() * len(parts)
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=dim)
 

@@ -131,6 +131,8 @@ class Sampler:
     tuner_statistic = "accept"
     # samplers with built-in adaptation make the job skip the tuner update
     self_tuning = False
+    # samplers whose step takes the run's keyed stream (``stream=``)
+    keyed = False
 
     def default_tuner(self) -> Tuner:
         return VanillaTuner()

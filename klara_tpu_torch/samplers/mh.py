@@ -5,8 +5,15 @@ Positions are (C, ...).  The random walk proposes x' = x + step·σ·z with
 z ~ N(0, I) per chain, where σ is a scalar, a per-coordinate vector or a
 lower Cholesky factor (matrix, applied to each row as σ z).  A general
 proposal is ``proposal_fn(x, step) -> Distribution`` over the (C, ...)
-batch, with ``step`` the (C,) tuned scale, drawn once per chain;
-asymmetric proposals add
+batch, with ``step`` the (C,) tuned scale, drawn once per chain from a
+keyed stream (``ops.keyed``, kernel K2 on the card) at counter (step,
+``MH_SITE``), so on a mesh a rank draws only its own chains.  ``MCJob``
+owns the stream: it keys one per ``run`` or ``resume`` from the generator
+and hands it to ``step`` at each step's index.  Called without one
+(directly, or as a Gibbs job's nested sampler) ``step`` keys a fresh
+stream from the generator at every step.  The proposal's ``sample`` is
+handed the stream, not a ``torch.Generator`` (see
+``distributions.core.Distribution.sample``).  Asymmetric proposals add
 logpdf(q(x'→x)) − logpdf(q(x→x')), summed per chain, and proposals whose
 logpdf omits its normaliser add the normalisers' difference as well.
 """
@@ -20,7 +27,8 @@ import torch
 
 from klara_tpu_torch.distributions.core import draw_per_chain
 from klara_tpu_torch.models.graph import chain_sum
-from klara_tpu_torch.parallel.mesh import draw_for_all_chains
+from klara_tpu_torch.ops.keyed import MH_SITE, KeyedStream, check_device
+from klara_tpu_torch.parallel.mesh import active_block
 from klara_tpu_torch.samplers.base import (
     Info,
     Sampler,
@@ -51,6 +59,12 @@ class MH(Sampler):
     # then takes from `proposal.lognormaliser()`
     normalised: bool = True
 
+    @property
+    def keyed(self) -> bool:
+        """Whether ``step`` draws from a keyed stream (a proposal
+        distribution), which a job then hands it."""
+        return self.proposal_fn is not None
+
     def init(self, target, position, generator=None, step_size=None, tuner=None):
         """``step_size`` (a number or a (C,) tensor) starts the tuned scale
         (default 1); it stays floating for integer positions."""
@@ -68,10 +82,11 @@ class MH(Sampler):
             return x + chain_view(scale, x) * (z @ sigma.T)
         return x + chain_view(scale, x) * sigma * z
 
-    def step(self, state: MHState, target, generator=None, z=None, u=None):
+    def step(self, state: MHState, target, generator=None, z=None, u=None, stream=None):
         """One MH transition for every chain.  ``z`` (the proposal's
         standard draw) and ``u`` (the accept uniform) may be given to replay
-        draws."""
+        draws.  ``stream`` is the run's keyed stream at this step (None: a
+        fresh one from ``generator``); its site is set here."""
         x, lt = state.position, state.logtarget
         scale = state.tune.step
 
@@ -84,12 +99,12 @@ class MH(Sampler):
         else:
             fwd = self.proposal_fn(x, scale)
             if z is None:
-                # on a split mesh drawn from every chain's proposal (the draw
-                # rule); else from fwd
-                x_new = draw_for_all_chains(
-                    lambda xs, ss: draw_per_chain(
-                        fwd if xs is x else self.proposal_fn(xs, ss), xs, generator),
-                    x, scale)
+                if stream is None:
+                    block = active_block()
+                    stream = KeyedStream.for_run(generator, x.device, x.shape[0],
+                                                 0 if block is None else block.offset)
+                check_device("the stream", stream.device, x.device)
+                x_new = draw_per_chain(fwd, x, stream.at(site=MH_SITE))
             else:
                 x_new = draw_per_chain(fwd, x, generator, z)
             lt_new = target.logdensity(x_new)
@@ -111,4 +126,4 @@ class MH(Sampler):
             accept_stat=accept_prob(ratio),
             logtarget=logtarget,
         )
-        return MHState(position, logtarget, state.tune), info
+        return state._replace(position=position, logtarget=logtarget), info

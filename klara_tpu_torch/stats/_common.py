@@ -7,8 +7,13 @@ A chain run on a mesh holds one rank's block of the chains (axis 1 of a
 trace) and names its mesh.  Its statistics are the global ones on every
 rank, as every JAX process gets the replicated result of a reduction over
 the global chains axis: ``mean``, ``acceptance`` and ``ess`` (summed over
-chains) all-reduce their sums, every other statistic gathers the draws of
-all chains first (``extract_f32``)."""
+chains) all-reduce their sums; ``mcvar``, ``mcse``, ``iact`` and the
+per-chain ``ess`` and ``mean`` compute on the rank's chains and all-gather
+their per-chain results (``gather_results``); split-chain ``rhat``
+all-gathers per-chain means and variances.  Only the rank-normalised
+statistics (``rhat_rank``, ``ess_bulk``, ``ess_tail``: a global rank needs
+every draw) and the zero-variance estimators gather the draws of all
+chains (``extract_f32(..., gather=True)``)."""
 
 from __future__ import annotations
 
@@ -33,9 +38,9 @@ def chain_scope(chain_or_array, x):
     return chain_context(block_of(chain_or_array, x.shape[1]) if x.dim() >= 2 else None)
 
 
-def extract_f32(chain_or_array, field: str = "value", gather: bool = True):
-    """The field as a tensor, f32 if narrower; a meshed chain's trace with
-    every rank's chains (axis 1) unless ``gather`` is False."""
+def extract_f32(chain_or_array, field: str = "value", gather: bool = False):
+    """The field as a tensor, f32 if narrower; a meshed chain's trace holds
+    this rank's chains (axis 1), every rank's with ``gather``."""
     x = chain_or_array[field] if hasattr(chain_or_array, "samples") else chain_or_array
     x = torch.as_tensor(x)
     if x.is_floating_point() and torch.finfo(x.dtype).bits < 32:
@@ -44,3 +49,12 @@ def extract_f32(chain_or_array, field: str = "value", gather: bool = True):
         with chain_scope(chain_or_array, x):
             x = gather_chains(x, dim=1)
     return x
+
+
+def gather_results(chain_or_array, x, result):
+    """``result``, a per-chain statistic of the trace ``x`` with the chains
+    on axis 0, with every rank's chains (as it is without a mesh)."""
+    if x.dim() < 2:
+        return result
+    with chain_scope(chain_or_array, x):
+        return gather_chains(result)

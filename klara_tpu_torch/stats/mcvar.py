@@ -14,8 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from klara_tpu_torch.parallel.mesh import gather_chains, sum_over_ranks
-from klara_tpu_torch.stats._common import chain_scope, extract_f32
+from klara_tpu_torch.parallel.mesh import sum_over_ranks
+from klara_tpu_torch.stats._common import chain_scope, extract_f32, gather_results
 
 
 def autocov(x, maxlag=None):
@@ -85,8 +85,10 @@ _ESTIMATORS = {
 
 
 def mcvar(chain_or_array, estimator: str = "imse", field: str = "value", **kwargs):
-    """MC variance of the chain mean along the draws axis."""
-    return _ESTIMATORS[estimator](extract_f32(chain_or_array, field), **kwargs)
+    """MC variance of the chain mean along the draws axis, per chain; a
+    meshed chain's is computed on the rank's chains and gathered."""
+    x = extract_f32(chain_or_array, field)
+    return gather_results(chain_or_array, x, _ESTIMATORS[estimator](x, **kwargs))
 
 
 def mcse(chain_or_array, estimator: str = "imse", field: str = "value", **kwargs):
@@ -100,15 +102,16 @@ def ess(chain_or_array, estimator: str = "imse", field: str = "value",
     ``combine_chains`` summed over the chain axis (dim 1).  A meshed chain's
     sum is all-reduced (per chain: gathered), so every rank gets the global
     value."""
-    x = extract_f32(chain_or_array, field, gather=False)
+    x = extract_f32(chain_or_array, field)
     e = x.shape[0] * mcvar_iid(x) / _ESTIMATORS[estimator](x, **kwargs)
-    if x.dim() < 2:
-        return e
+    if x.dim() < 2 or not combine_chains:
+        return gather_results(chain_or_array, x, e)
     with chain_scope(chain_or_array, x):
-        return sum_over_ranks(e.sum(0)) if combine_chains else gather_chains(e)
+        return sum_over_ranks(e.sum(0))
 
 
 def iact(chain_or_array, estimator: str = "imse", field: str = "value", **kwargs):
-    """Integrated autocorrelation time var_mc/var_iid."""
+    """Integrated autocorrelation time var_mc/var_iid, per chain (a meshed
+    chain's gathered)."""
     x = extract_f32(chain_or_array, field)
-    return _ESTIMATORS[estimator](x, **kwargs) / mcvar_iid(x)
+    return gather_results(chain_or_array, x, _ESTIMATORS[estimator](x, **kwargs) / mcvar_iid(x))

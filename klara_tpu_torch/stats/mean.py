@@ -12,7 +12,7 @@ def mean(chain, field: str = "value", per_chain: bool = False):
     """Mean of a monitored field across draws (and chains); bf16 traces are
     promoted to f32 first.  A meshed chain's mean is the global one on every
     rank (per chain: every rank's chains)."""
-    arr = extract_f32(chain, field, gather=False)
+    arr = extract_f32(chain, field)
     with chain_scope(chain, arr):
         if per_chain:
             return gather_chains(arr.mean(0))

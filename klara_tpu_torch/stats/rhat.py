@@ -1,6 +1,11 @@
 """Split-R̂ and rank-normalised diagnostics (counterpart of
 klara_tpu/stats/rhat.py; Vehtari, Gelman, Simpson, Carpenter & Bürkner 2021).
 
+Of a meshed chain, split-R̂ all-gathers each half-chain's mean and variance
+(every half has the same length, so no length is gathered); the
+rank-normalised statistics (``rhat_rank``, ``ess_bulk``, ``ess_tail``)
+all-gather the draws, since a draw's global rank needs every draw.
+
 Median and quantile are written on ``torch.sort``: ``torch.median`` returns
 the lower middle value where ``jnp.median`` averages the two, and
 ``torch.quantile`` refuses inputs over 2^24 elements.
@@ -10,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from klara_tpu_torch.stats._common import extract_f32
+from klara_tpu_torch.stats._common import extract_f32, gather_results
 from klara_tpu_torch.stats.mcvar import ess
 
 
@@ -19,9 +24,12 @@ def rhat(chain_or_array, field: str = "value"):
     x = extract_f32(chain_or_array, field)
     n = x.shape[0] // 2 * 2
     half = n // 2
-    x = torch.cat([x[:half], x[half:n]], dim=1)
-    chain_means = x.mean(0)
-    chain_vars = torch.var(x, dim=0, correction=1)
+    split = torch.cat([x[:half], x[half:n]], dim=1)
+    # (2 stats, 2 halves, m chains, ...) -> every rank's chains on axis 2
+    per_chain = torch.stack([split.mean(0), torch.var(split, dim=0, correction=1)])
+    per_chain = per_chain.unflatten(1, (2, x.shape[1])).movedim(2, 0)
+    per_chain = gather_results(chain_or_array, x, per_chain).movedim(0, 2).flatten(1, 2)
+    chain_means, chain_vars = per_chain
     w = chain_vars.mean(0)
     b = half * torch.var(chain_means, dim=0, correction=1)
     var_plus = (half - 1) / half * w + b / half
@@ -65,7 +73,7 @@ def _rank_normalize(x):
 def rhat_rank(chain_or_array, field: str = "value"):
     """Rank-normalised split-R̂: the max of bulk (rank-normalised) and tail
     (folded rank-normalised) split-R̂.  Input (n, m, ...) -> output (...)."""
-    x = extract_f32(chain_or_array, field)
+    x = extract_f32(chain_or_array, field, gather=True)
     bulk = rhat(_rank_normalize(x))
     folded = torch.abs(x - _median0(x.reshape((-1,) + tuple(x.shape[2:]))))
     tail = rhat(_rank_normalize(folded))
@@ -74,13 +82,13 @@ def rhat_rank(chain_or_array, field: str = "value"):
 
 def ess_bulk(chain_or_array, field: str = "value", **kwargs):
     """Bulk-ESS: ESS of the rank-normalised draws."""
-    return ess(_rank_normalize(extract_f32(chain_or_array, field)), **kwargs)
+    return ess(_rank_normalize(extract_f32(chain_or_array, field, gather=True)), **kwargs)
 
 
 def ess_tail(chain_or_array, field: str = "value", quantiles=(0.05, 0.95), **kwargs):
     """Tail-ESS: the minimum ESS of the rank-normalised indicator chains
     for the given tail quantiles."""
-    x = extract_f32(chain_or_array, field)
+    x = extract_f32(chain_or_array, field, gather=True)
     flat = x.reshape((-1,) + tuple(x.shape[2:]))
     out = None
     for q in quantiles:

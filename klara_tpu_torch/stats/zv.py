@@ -16,8 +16,10 @@ from klara_tpu_torch.stats._common import extract_f32
 def _flatten(chain):
     if not hasattr(chain, "samples"):
         raise TypeError("pass a Chain with 'value' and 'gradlogtarget' monitored")
-    values = extract_f32(chain, "value")
-    grads = extract_f32(chain, "gradlogtarget")
+    # the estimators fit one set of coefficients to every draw: a meshed
+    # chain's draws are gathered
+    values = extract_f32(chain, "value", gather=True)
+    grads = extract_f32(chain, "gradlogtarget", gather=True)
     return (values.reshape((-1,) + tuple(values.shape[2:])),
             grads.reshape((-1,) + tuple(grads.shape[2:])))
 

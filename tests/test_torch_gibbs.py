@@ -393,6 +393,23 @@ def test_gamma_conditional_shares_its_draw_within_a_chain_as_in_jax():
         assert len(np.unique(scaled[..., 0])) == 3 * C  # independent across chains and sweeps
 
 
+def test_conditionals_draw_from_the_keyed_stream_at_sweep_and_block():
+    """Block b of sweep i draws from the run's keyed stream at counter
+    (i, b), whose key is the generator's first draw of the run: two
+    standard-normal blocks rebuilt from the stream, bit for bit."""
+    from klara_tpu_torch.ops.keyed import KeyedStream, run_key
+
+    model = kt.GenericModel([kt.GibbsParameter("a", setpdf=lambda v: td.Normal(0.0, 1.0)),
+                             kt.GibbsParameter("b", setpdf=lambda v: td.Normal(0.0, 1.0))])
+    job = kt.GibbsJob(model, {}, kt.MCRange(n_steps=4, burnin=0), n_chains=8, device="cpu")
+    chains = job.run(torch.Generator().manual_seed(2), {"a": 0.0, "b": 0.0})
+    stream = KeyedStream(run_key(torch.Generator().manual_seed(2), "cpu"), 8)
+    for i in range(4):
+        for block, key in enumerate(("a", "b")):
+            want = stream.at(step=i, site=block).normal((8,))
+            torch.testing.assert_close(chains.samples[key][i], want, rtol=0, atol=0)
+
+
 def test_resume_from_jax_chains_through_convert():
     """JAX GibbsChains (bf16 trace) as numpy -> the port's, resumed there."""
     from klara_tpu_torch import convert

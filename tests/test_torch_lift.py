@@ -251,8 +251,9 @@ def test_from_model_builds_the_conditional_target():
         def __init__(self, x):
             self.x = x
 
-        def sample(self, generator, shape=()):
-            step = torch.randint(0, 2, self.x.shape, generator=generator) * 2 - 1
+        def sample(self, rng, shape=()):
+            # MH hands a proposal its keyed stream
+            step = torch.where(rng.uniform(self.x.shape) < 0.5, -1, 1)
             return torch.where(self.x == 0, torch.ones_like(self.x), self.x + step.to(self.x.dtype))
 
         def logpdf(self, y):

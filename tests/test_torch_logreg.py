@@ -104,7 +104,7 @@ def test_import_needs_no_nvcc_or_triton():
         "ops.logreg_value_grad(P, X, X.T @ torch.ones(4), 1.0)\n"
         "assert 'triton' not in sys.modules\n"
         "assert had_jax or 'jax' not in sys.modules\n"
-        "assert _build._lib is None\n"
+        "assert _build._libs == {}\n"
     )
     env = dict(os.environ, PATH="/usr/bin:/bin", PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,

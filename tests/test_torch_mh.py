@@ -167,3 +167,104 @@ def test_mcjob_runs_mh():
     assert chain.value.shape == (1500, 64, 2)
     assert float(x.mean(0).abs().max()) < 0.15
     assert float((x.var(0) - 1.0).abs().max()) < 0.2
+
+
+def test_mh_proposal_distribution_draws_from_its_keyed_stream():
+    """A proposal distribution draws from the keyed stream (``ops.keyed``)
+    it is handed, at counter (its step, ``MH_SITE``); handed none, ``step``
+    keys a fresh stream from the generator's next draw, at step 0.  The
+    state carries no key."""
+    from klara_tpu_torch.ops.keyed import MH_SITE, KeyedStream, run_key
+
+    _, tt = _targets()
+    sampler = kt.MH(proposal_fn=lambda x, s: td.Normal(x, 0.5 * s[:, None]), symmetric=False)
+    assert sampler.keyed and not kt.MH().keyed
+    state = sampler.init(tt, torch.zeros(C, D))
+    assert state._fields == ("position", "logtarget", "tune")
+    stream = KeyedStream(run_key(torch.Generator().manual_seed(3), "cpu"), C)
+    s1, info = sampler.step(state, tt, torch.Generator().manual_seed(1), stream=stream.at(step=5))
+    proposal = 0.5 * stream.at(step=5, site=MH_SITE).normal((C, D))
+    assert bool(info.accept.any())
+    torch.testing.assert_close(s1.position[info.accept], proposal[info.accept], rtol=0, atol=0)
+
+    s2, info = sampler.step(state, tt, torch.Generator().manual_seed(9))
+    key = run_key(torch.Generator().manual_seed(9), "cpu")
+    proposal = 0.5 * KeyedStream(key, C, 0, 0, MH_SITE).normal((C, D))
+    assert bool(info.accept.any())
+    torch.testing.assert_close(s2.position[info.accept], proposal[info.accept], rtol=0, atol=0)
+
+
+def test_mh_resume_continues_the_proposal_stream():
+    """``MCJob`` owns the proposal's keyed stream: ``run`` and ``resume``
+    each key one from the generator's next draw and hand it to step i at
+    counter (i, ``MH_SITE``), so a resumed run draws from a stream of its
+    own (no proposal of the first run is drawn again)."""
+    from klara_tpu_torch.ops.keyed import MH_SITE, run_key
+
+    handed = []
+
+    class Recorded(td.Distribution):
+        def __init__(self, inner):
+            self.inner = inner
+
+        def sample(self, rng, shape=()):
+            handed.append(rng)
+            return self.inner.sample(rng, shape)
+
+        def logpdf(self, x):
+            return self.inner.logpdf(x)
+
+    target = kt.Target(logdensity_fn=lambda x: (torch.log(x) - x).sum(-1), dim=1)
+    sampler = kt.MH(proposal_fn=lambda x, s: Recorded(td.LogNormal(torch.log(x),
+                                                                   0.5 * s[:, None])),
+                    symmetric=False)
+    job = kt.MCJob(target, sampler, kt.MCRange(n_steps=30, burnin=10), n_chains=16,
+                   device="cpu")
+    gen = torch.Generator().manual_seed(4)
+    first = job.run(gen, torch.ones(1))
+    second = job.resume(gen, first)
+    assert len(handed) == 60
+    runs = handed[:30], handed[30:]
+    for streams in runs:
+        assert [int(s.step) for s in streams] == list(range(30))
+        assert {(s.site, s.chains, s.offset) for s in streams} == {(MH_SITE, 16, 0)}
+        assert all(torch.equal(s.key, streams[0].key) for s in streams)
+    assert torch.equal(runs[0][0].key, run_key(torch.Generator().manual_seed(4), "cpu"))
+    assert not torch.equal(runs[0][0].key, runs[1][0].key)
+    assert bool(torch.isfinite(second.value).all()) and bool((second.value > 0).all())
+
+
+def test_mh_refuses_a_generator_or_stream_on_another_device():
+    """A proposal's keyed draws stay on the positions' device: a generator
+    or a stream elsewhere raises instead of drawing there."""
+    from klara_tpu_torch.ops.keyed import KeyedStream
+
+    tt = kt.Target(logdensity_fn=lambda x: -0.5 * (x * x).sum(-1), dim=D)
+    sampler = kt.MH(proposal_fn=lambda x, s: td.Normal(x, s[:, None]))
+    state = sampler.init(tt, torch.zeros(C, D, device="meta"))
+    with pytest.raises(ValueError, match="the generator is on cpu"):
+        sampler.step(state, tt, torch.Generator())
+    stream = KeyedStream(torch.zeros((), dtype=torch.int64), C)
+    with pytest.raises(ValueError, match="the stream is on cpu"):
+        sampler.step(state, tt, None, stream=stream)
+
+
+def test_a_proposal_that_needs_a_generator_gets_a_clear_type_error():
+    """A proposal of the user's own whose ``sample`` calls torch with its
+    ``rng`` as a generator is told that it was handed a ``KeyedStream``."""
+
+    class Walk(td.Distribution):
+        def __init__(self, x):
+            self.x = x
+
+        def sample(self, rng, shape=()):
+            return self.x + torch.randint(0, 2, self.x.shape, generator=rng)
+
+        def logpdf(self, y):
+            return torch.zeros(y.shape[0])
+
+    _, tt = _targets()
+    sampler = kt.MH(proposal_fn=lambda x, s: Walk(x))
+    state = sampler.init(tt, torch.zeros(C, D))
+    with pytest.raises(TypeError, match="Walk.sample was handed a KeyedStream"):
+        sampler.step(state, tt, torch.Generator().manual_seed(0))

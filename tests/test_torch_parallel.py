@@ -6,11 +6,17 @@ Counterparts of tests/test_parallel.py (the graft dry run is not ported)
 and of tests/test_hardening.py::test_resume_under_mesh, plus the port's own
 rules:
 
-* the draw rule: two ranks against one process, bit for bit, for every draw
-  site (MALA, HMC with the shared jitter, NUTS's (J, C) draws, MH with a
-  random walk and with a proposal distribution, the slice sampler's in-loop
-  draws, the rats Gibbs conditionals with their gamma draws, the
-  prior-drawn x0), and generators seeded differently raise;
+* the draw rule and the keyed stream: two ranks against one process, bit
+  for bit, for every draw site (MALA, HMC with the shared jitter, NUTS's
+  (J, C) draws, MH with a random walk and with a proposal distribution, the
+  slice sampler's in-loop draws, the rats Gibbs conditionals with their
+  gamma draws, the prior-drawn x0), and generators seeded differently
+  raise; a Gibbs job and an MH proposal distribution on two ranks carry
+  each rank's block only and issue no collective but the run's generator
+  check;
+* the statistics of a meshed chain: global on every rank, with the
+  elements each one all-gathers counted (per-chain results, not draws,
+  except the rank-normalised ones);
 * the reductions (pooled tuning, ensemble mass, ChEES, the ensemble
   Cholesky) on two ranks against one process within 1e-6 relative (the
   sum order differs), and a one-rank mesh against no mesh bit for bit;
@@ -74,14 +80,35 @@ def _meshed_and_single(rank, mesh, run):
     return out
 
 
+STATS = {
+    "mean": lambda c: kt.stats.mean(c), "rate": lambda c: kt.stats.acceptance(c),
+    "ess": lambda c: kt.stats.ess(c), "rhat": lambda c: kt.stats.rhat(c),
+    "mean_pc": lambda c: kt.stats.mean(c, per_chain=True), "mcse": lambda c: kt.stats.mcse(c),
+    "iact": lambda c: kt.stats.iact(c), "ess_pc": lambda c: kt.stats.ess(c, combine_chains=False),
+    "rhat_rank": lambda c: kt.stats.rhat_rank(c),
+}
+
+
+def _collectives_of(fn):
+    """``fn()`` and the collectives it issued, by kind."""
+    from klara_tpu_torch.parallel.mesh import COLLECTIVES
+
+    before = dict(COLLECTIVES)
+    out = fn()
+    return out, {k: COLLECTIVES[k] - before[k] for k in COLLECTIVES}
+
+
 def s_mala(rank, meshes):
     def run(mesh):
         job = kt.MCJob(_std_target(), kt.MALA(driftstep=0.8), kt.MCRange(n_steps=200, burnin=50),
                        n_chains=16, mesh=mesh)
         chain = job.run(_gen(5), torch.zeros(2))
-        return {"value": chain.value, "mean": kt.stats.mean(chain),
-                "rate": kt.stats.acceptance(chain), "ess": kt.stats.ess(chain),
-                "rhat": kt.stats.rhat(chain), "mean_pc": kt.stats.mean(chain, per_chain=True)}
+        out, gathered = {"value": chain.value}, {}
+        for name, stat in STATS.items():
+            out[name], counts = _collectives_of(lambda: stat(chain))
+            gathered[name] = counts["gathered_elements"]
+        out["gathered"] = gathered
+        return out
 
     return _meshed_and_single(rank, meshes["chains"], run)
 
@@ -111,14 +138,31 @@ def _bivariate():
                             kt.GibbsParameter("p2", setpdf=cond("p1"))])
 
 
-def s_gibbs(rank, meshes):
-    def run(mesh):
-        v0 = {"rho": torch.tensor(0.8), "p1": 0.0, "p2": 0.0}
-        job = kt.GibbsJob(_bivariate(), {}, kt.MCRange(n_steps=400, burnin=100), n_chains=16,
-                          mesh=mesh, device="cpu")
-        return job.run(_gen(3), v0).samples
+def _gibbs_record(out, collectives):
+    return {"samples": out.samples, "final": out.final_values, "collectives": collectives,
+            "carried": {k: tuple(v.shape) for k, v in out.final_values.items()}}
 
-    return _meshed_and_single(rank, meshes["chains"], run)
+
+def s_gibbs(rank, meshes):
+    """The bivariate Gibbs job on the mesh and alone; and a one-process run
+    resumed on the mesh (each rank cuts its block of the final values once)
+    against the one process's resume."""
+    v0 = {"rho": torch.tensor(0.8), "p1": 0.0, "p2": 0.0}
+
+    def job(mesh):
+        return kt.GibbsJob(_bivariate(), {}, kt.MCRange(n_steps=400, burnin=100), n_chains=16,
+                           mesh=mesh, device="cpu")
+
+    def run(mesh):
+        return _gibbs_record(*_collectives_of(lambda: job(mesh).run(_gen(3), v0)))
+
+    out = _meshed_and_single(rank, meshes["chains"], run)
+    alone = job(None).run(_gen(3), v0)
+    out["resumed"] = _gibbs_record(*_collectives_of(
+        lambda: job(meshes["chains"]).resume(_gen(4), alone, v0)))
+    if rank == 0:
+        out["resumed_single"] = job(None).resume(_gen(4), alone, v0).samples
+    return out
 
 
 def s_resume(rank, meshes):
@@ -153,7 +197,7 @@ def s_draw_sites(rank, meshes):
                               dict(tuner=kt.DualAveragingTuner(0.8, 10)), 20, 10),
         "nuts": (_std_target(), kt.NUTS(max_doublings=3), {}, 10, 5),
         "mh": (_std_target(), kt.MH(sigma=1.0), {}, 20, 5),
-        # an asymmetric proposal distribution, drawn for every chain
+        # an asymmetric proposal distribution, drawn from the keyed stream
         "mh_proposal": (gamma_target, kt.MH(
             proposal_fn=lambda x, s: LogNormal(torch.log(x), 0.5 * s[:, None]),
             symmetric=False), {}, 20, 5),
@@ -166,14 +210,16 @@ def s_draw_sites(rank, meshes):
             job = kt.MCJob(target, sampler, kt.MCRange(n_steps=n, burnin=burnin), n_chains=16,
                            mesh=mesh, device="cpu", **kw)
             x0 = {"prior_x0": None, "mh_proposal": torch.ones(1)}.get(name, torch.zeros(2))
-            return job.run(_gen(11), x0).value
+            chain, collectives = _collectives_of(lambda: job.run(_gen(11), x0))
+            return {"value": chain.value, "collectives": collectives,
+                    "position": tuple(chain.final_state.position.shape)}
 
         out[name] = _meshed_and_single(rank, meshes["chains"], run)
 
     def rats(mesh):
         model, v0 = rats_gibbs_model(device="cpu")
         job = kt.GibbsJob(model, {}, kt.MCRange(n_steps=20, burnin=5), n_chains=16, mesh=mesh)
-        return job.run(_gen(12), v0).samples
+        return _gibbs_record(*_collectives_of(lambda: job.run(_gen(12), v0)))
 
     out["rats_gibbs"] = _meshed_and_single(rank, meshes["chains"], rats)
     return out
@@ -570,10 +616,34 @@ def test_param_sharded_target_indivisible_dim_errors(four):
         jtarget(jax.numpy.asarray(X), jax.numpy.asarray(y), jmesh2d(4, 2))
 
 
+def _assert_rank_blocks_without_collectives(parts, run="meshed", chains=16):
+    """Each rank carried its n_chains / 2 chains, and its run issued no
+    collective but the generator check (one all-gather of one digest a
+    rank)."""
+    for part in parts:
+        rec = part[run]
+        assert all(shape[0] == chains // 2 for shape in rec["carried"].values()), rec["carried"]
+        assert all(v.shape[1] == chains // 2 for v in rec["samples"].values())
+        assert rec["collectives"] == {"all_reduce": 0, "all_gather": 1, "gathered_elements": 2}
+
+
 def test_gibbs_determinism_across_shardings(two):
     parts = _part(two, "gibbs")
     for key in ("p1", "p2"):
-        torch.testing.assert_close(_cat(parts, key), parts[0]["single"][key], rtol=0, atol=0)
+        torch.testing.assert_close(torch.cat([p["meshed"]["samples"][key] for p in parts], 1),
+                                   parts[0]["single"]["samples"][key], rtol=0, atol=0)
+    _assert_rank_blocks_without_collectives(parts)
+
+
+def test_gibbs_resume_of_a_one_process_run_on_two_ranks(two):
+    """A one-process chain resumed on two ranks: each rank cuts its block of
+    the 16 chains' final values once, and the traces equal the one-process
+    resume bit for bit."""
+    parts = _part(two, "gibbs")
+    for key in ("p1", "p2"):
+        torch.testing.assert_close(torch.cat([p["resumed"]["samples"][key] for p in parts], 1),
+                                   parts[0]["resumed_single"][key], rtol=0, atol=0)
+    _assert_rank_blocks_without_collectives(parts, "resumed")
 
 
 # ------------------------------------------------ counterpart of test_hardening
@@ -592,17 +662,30 @@ def test_resume_under_mesh(two):
                                   "prior_x0"])
 def test_draw_rule_two_ranks_equal_one_process(two, site):
     parts = [p[site] for p in _part(two, "draw_sites")]
-    got = torch.cat([p["meshed"] for p in parts], 1)
-    torch.testing.assert_close(got, parts[0]["single"], rtol=0, atol=0)
+    got = torch.cat([p["meshed"]["value"] for p in parts], 1)
+    torch.testing.assert_close(got, parts[0]["single"]["value"], rtol=0, atol=0)
+    for part in parts:
+        assert part["meshed"]["position"][0] == 8
+    if site == "mh_proposal":
+        # the proposal draws from the keyed stream: no collective but the
+        # run's generator check, whatever the number of steps
+        for part in parts:
+            assert part["meshed"]["collectives"] == {"all_reduce": 0, "all_gather": 1,
+                                                     "gathered_elements": 2}
 
 
 def test_draw_rule_gibbs_conditionals(two):
-    """The rats conditionals (Normal and InverseGamma draws, per-chain
-    parameters gathered) on two ranks equal one process bit for bit."""
+    """The rats conditionals (Normal and InverseGamma draws from the keyed
+    stream) on two ranks equal one process bit for bit; each rank carries
+    its 8 chains and the sweeps issue no collective."""
     parts = [p["rats_gibbs"] for p in _part(two, "draw_sites")]
-    for key, single in parts[0]["single"].items():
-        got = torch.cat([p["meshed"][key] for p in parts], 1)
+    for key, single in parts[0]["single"]["samples"].items():
+        got = torch.cat([p["meshed"]["samples"][key] for p in parts], 1)
         torch.testing.assert_close(got, single, rtol=0, atol=0)
+    for key, single in parts[0]["single"]["final"].items():
+        got = torch.cat([p["meshed"]["final"][key] for p in parts])
+        torch.testing.assert_close(got, single, rtol=0, atol=0)
+    _assert_rank_blocks_without_collectives(parts)
 
 
 def test_take_block_rejects_a_leaf_of_another_length():
@@ -706,12 +789,22 @@ def test_run_preconditioned_one_rank_mesh_equals_no_mesh(two):
 
 
 # ------------------------------------------------------------ statistics
-@pytest.mark.parametrize("stat", ["mean", "rate", "ess", "rhat", "mean_pc"])
+# elements each statistic all-gathers on the two ranks (150 draws, 16 chains,
+# dim 2): sums are all-reduced; per-chain results are 16 x 2; split-R-hat's
+# per-chain means and variances of both halves 2 x 2 x 16 x 2; only the
+# rank-normalised R-hat gathers the 150 x 16 x 2 draws
+GATHERED = {"mean": 0, "rate": 0, "ess": 0, "rhat": 128, "mean_pc": 32, "mcse": 32,
+            "iact": 32, "ess_pc": 32, "rhat_rank": 4800}
+
+
+@pytest.mark.parametrize("stat", sorted(GATHERED))
 def test_meshed_statistics_are_global_on_every_rank(two, stat):
     parts = _part(two, "mala")
     assert torch.equal(parts[0]["meshed"][stat], parts[1]["meshed"][stat])
     torch.testing.assert_close(parts[0]["meshed"][stat], parts[0]["single"][stat],
                                rtol=1e-5, atol=1e-6)
+    for part in parts:
+        assert part["meshed"]["gathered"][stat] == GATHERED[stat]
 
 
 # ------------------------------------------------------------ JAX parity
