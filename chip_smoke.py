@@ -57,7 +57,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    alpha_c and beta_c match the published BUGS values; print seconds,
    sweeps/s, chain-sweeps/s, min ESS, ESS per draw, ESS/s and K2's launches
    per sweep, and, after phase 10, the device kernels and time per sweep of
-   ``GIBBS_PROFILE_SWEEPS`` profiled sweeps;
+   ``GIBBS_PROFILE_SWEEPS`` profiled sweeps and the host time of a sweep's
+   K2 draws over as many more;
 10. run 5 conjugate sweeps (K2 draws) from phase 9's final values under
    ``torch.cuda.set_sync_debug_mode("error")``: the sweep reads nothing back;
 11. run the rats model with ``alpha`` as a nested HMC block on its
@@ -162,16 +163,22 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ends;
 27. hold K2 (``klara_tpu_torch/ops/csrc/keyed_draws.cu``, per-chain keyed
    draws) to its plain version on the card with the same keys and counters
-   in every mode and both types (``K2_*`` tolerances: uniforms bit for bit,
+   in every mode and both types, at 4096 x 30 and at 16384 x 100, where
+   each thread strides over several elements, on the parameter grid and at
+   the timed parameters (``K2_*`` tolerances: uniforms bit for bit,
    the f64 ones holding 53 bits of Philox words 0-1, normals within a few
    ulp, gamma, Poisson and binomial on the same attempt but for a stated
    share, and there within a relative tolerance or equal), gamma also at
    the rats sweep's scalar shape parameters 15.001 and 75.001 (4096 x 1),
    the means and variances of 10^6 kernel draws per grid point to the exact
-   ones within 5 standard errors, the overflow counter to 0; count one
-   Philox call's SASS instructions by pipe (``cuobjdump`` of a probe built
-   from K2's source); time every mode at the rats shapes and at 16384 x 100
-   beside its plain version, torch's own call and its bound.
+   ones within 5 standard errors, the overflow counter to 0; read each
+   (mode, type) kernel's registers and blocks an SM; count one Philox
+   call's SASS instructions by pipe and each mode's cheap and slow tests'
+   floating-point instructions on their shortest path (``cuobjdump`` of a
+   probe built from K2's source); time every mode at the rats shapes and at
+   16384 x 100 (ms over 50 launches, host µs and device µs a launch) beside
+   torch's own call, its plain version and its bound (the Philox calls,
+   cheap tests and slow tests this run's elements made).
 
 The Gibbs paths launch no K1 (their sweep is plain torch ops in both
 packages); the kernels line records their K1 count, 0.  K2 draws every
@@ -204,6 +211,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import heapq
 import io
 import json
 import math
@@ -228,10 +236,19 @@ GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-3
 TF32_VALUE_RTOL, TF32_GRAD_RTOL, TF32_GRAD_ATOL = 1e-3, 1e-2, 0.5
 TF32_PEAK_FLOPS, HBM_BYTES_PER_S = 495e12, 3.35e12  # H100 SXM, dense TF32; HBM3
 # K2's bound: the SASS instructions of one Philox4x32-10 call as nvcc compiles K2's
-# ``philox`` (``k2_philox_sass``), issued at the H100 SXM's rates per SM and clock: 64
+# ``philox`` (``k2_sass``), issued at the H100 SXM's rates per SM and clock: 64
 # lanes of the FMA pipe (IMAD), 64 of the ALU pipe (LOP3, IADD3, SHF, ...), 128 issues
 # (4 schedulers x 32 lanes) for every instruction; 132 SMs x 1.98 GHz
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+ISSUE_PER_S = 132 * 128 * 1.98e9
+# K2's transforms (``k2_sass``): the FP32 arithmetic at 128 lanes an SM, the FP64
+# arithmetic at 64, the MUFU transcendentals at 16 (NVIDIA's throughput table for
+# compute capability 9.0); compares, conversions and moves are left out, so the bound
+# stays a floor
+SASS_FP_PIPES = {"fp32": ("FFMA", "FMUL", "FADD"), "fp64": ("DFMA", "DADD", "DMUL"),
+                 "mufu": ("MUFU",)}
+SASS_FP_RATES = {"fp32": 132 * 128 * 1.98e9, "fp64": 132 * 64 * 1.98e9,
+                 "mufu": 132 * 16 * 1.98e9}
 SASS_FMA_PIPE = ("IMAD", "IMUL")
 SASS_ALU_PIPE = ("LOP3", "LOP", "IADD3", "IADD", "SHF", "SHL", "SHR", "LEA", "ISETP", "SEL",
                  "PRMT", "MOV", "IMNMX", "IABS", "PLOP3", "SGXT", "BMSK")
@@ -325,7 +342,7 @@ P26_HMC_LAMBDA, P26_HMC_BURNIN, P26_HMC_POST = 0.05, 50, 100
 P26_TIMEOUT = 600
 P26_MH_STEPS = 200
 # phase 27: K2 (keyed draws) against its plain version at the rats blocks' widest
-# per-chain draw, 4096 chains x 30; moments of 10^6 draws a point on the grid below;
+# per-chain draw, 4096 chains x 30, and at 16384 x 100; moments of 10^6 draws a point on the grid below;
 # times at the rats shapes (4096 chains x 1 and x 30 elements) and 16384 x 100, with
 # the parameters each mode is timed at: the rats InverseGamma conditionals' shape
 # parameter (1e-3 + 15), Poisson by PTRS, binomial by BTRS.  The rats sweep's three
@@ -345,6 +362,7 @@ K2_BINOMIALS = tuple((n, p) for n in (1, 20, 1000) for p in (0.01, 0.5, 0.99))
 # ulp can flip an accept near its boundary), there gamma within K2_GAMMA_RTOL and
 # Poisson and binomial equal
 K2_NORMAL_ULP, K2_OTHER_ATTEMPT_SHARE, K2_MOMENT_Z = 4.0, 1e-4, 5.0
+K2_TIMES_TIMEOUT = 600  # seconds for phase 27's timing process (~20 s on an H100)
 K2_GAMMA_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 
 
@@ -1226,8 +1244,25 @@ def profile_gibbs(job, chains, v0, gen, out_dir=None, window=200, warm=20):
     t0 = time.perf_counter()
     sweeps(window)
     torch.cuda.synchronize()
-    keyed.raise_on_overflow()
     wall = 1e3 * (time.perf_counter() - t0)
+    # a third window with every keyed draw's host time summed (perf_counter around
+    # keyed.draws, which the stream's methods call; the wrapper's own ~0.1 us included)
+    spent, draws = [0.0, 0], keyed.draws
+
+    def timed_draws(*args, **kw):
+        t = time.perf_counter()
+        out = draws(*args, **kw)
+        spent[0] += time.perf_counter() - t
+        spent[1] += 1
+        return out
+
+    keyed.draws = timed_draws
+    try:
+        sweeps(window)
+    finally:
+        keyed.draws = draws
+    torch.cuda.synchronize()
+    keyed.raise_on_overflow()
     kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     res = {
@@ -1240,6 +1275,8 @@ def profile_gibbs(job, chains, v0, gen, out_dir=None, window=200, warm=20):
         # profiled device busy time over the unprofiled window's wall time
         "idle_share_est": 1.0 - busy / wall,
         "k2_kernels_per_sweep": sum("keyed_draws" in e.name for e in kernels) / window,
+        "k2_host_us_per_sweep": 1e6 * spent[0] / window,
+        "k2_host_us_per_draw": 1e6 * spent[0] / max(spent[1], 1),
     }
     print(f"# gibbs_rats sweep profile: {json.dumps(res)}", flush=True)
     if out_dir is None:
@@ -2437,35 +2474,138 @@ extern "C" __global__ void k2_probe_base(uint4* o, const long long* key, unsigne
   const unsigned long long kk = (unsigned long long)*key;
   o[i] = make_uint4(i, c1, (uint32_t)kk, (uint32_t)(kk >> 32));
 }}
+// the transforms on Philox words and element state read from memory, as the f32 draws
+// compile them; each stores one int, so only the test's own work is left
+#define K2_WORDS const unsigned i = blockIdx.x * blockDim.x + threadIdx.x; \
+  const uint4 v4 = w[i]; const Words x{{v4.x, v4.y, v4.z, v4.w}};
+extern "C" __global__ void k2_probe_uniform(int* o, const uint4* w, const double* s) {{
+  K2_WORDS o[i] = __float_as_int(uniform(x, 0.0f));
+}}
+extern "C" __global__ void k2_probe_normal(int* o, const uint4* w, const double* s) {{
+  K2_WORDS o[i] = __float_as_int(normal(x, 0.0f));
+}}
+extern "C" __global__ void k2_probe_gamma_cheap(int* o, const uint4* w, const double* s) {{
+  K2_WORDS Gamma<float> g;
+  g.c = (float)s[i];
+  o[i] = g.test(x, x);
+}}
+extern "C" __global__ void k2_probe_poisson_cheap(int* o, const uint4* w, const double* s) {{
+  K2_WORDS Poisson<float> g;
+  g.inversion = false;
+  g.lam = s[i]; g.a = s[i + 1]; g.b = s[i + 2]; g.vr = s[i + 3];
+  o[i] = g.test(x);
+}}
+extern "C" __global__ void k2_probe_binomial_cheap(int* o, const uint4* w, const double* s) {{
+  K2_WORDS Binomial<float> g;
+  g.n = s[i]; g.a = s[i + 1]; g.b = s[i + 2]; g.c = s[i + 3]; g.v_r = s[i + 4];
+  o[i] = g.test(x);
+}}
+extern "C" __global__ void k2_probe_gamma_slow(int* o, const uint4* w, const double* s) {{
+  K2_WORDS Gamma<float> g;
+  g.u = (float)s[i]; g.xx = (float)s[i + 1]; g.v = (float)s[i + 2]; g.d = (float)s[i + 3];
+  o[i] = g.slow();
+}}
+extern "C" __global__ void k2_probe_poisson_slow(int* o, const uint4* w, const double* s) {{
+  K2_WORDS Poisson<float> g;
+  g.V = s[i]; g.us = s[i + 1]; g.k = s[i + 2]; g.a = s[i + 3]; g.b = s[i + 4]; g.lam = s[i + 5];
+  g.loglam = s[i + 6]; g.log_invalpha = s[i + 7];
+  o[i] = g.slow();
+}}
+extern "C" __global__ void k2_probe_binomial_slow(int* o, const uint4* w, const double* s) {{
+  K2_WORDS Binomial<float> g;
+  g.v = s[i]; g.us = s[i + 1]; g.k = s[i + 2]; g.n = s[i + 3]; g.m = s[i + 4]; g.r = s[i + 5];
+  g.alpha = s[i + 6]; g.a = s[i + 7]; g.b = s[i + 8]; g.upper_m = s[i + 9]; g.st_m = s[i + 10];
+  g.st_nm = s[i + 11];
+  o[i] = g.slow();
+}}
 """
+# K2's transforms (``k2_sass``): the probes of each mode's cheap test (a whole attempt's
+# transform; uniform and normal: the element's) and slow test
+K2_TRANSFORMS = {"uniform": ("uniform", None), "normal": ("normal", None),
+                 "gamma": ("gamma_cheap", "gamma_slow"),
+                 "poisson": ("poisson_cheap", "poisson_slow"),
+                 "binomial": ("binomial_cheap", "binomial_slow")}
 
 
-def _sass_counts(text):
-    """{function: {opcode: count}} from ``cuobjdump -sass`` (NOPs, which pad
-    the code after its end, left out)."""
+def _sass_listing(text):
+    """{function: [(address, predicated, opcode, operands)]} from ``cuobjdump
+    -sass`` (NOPs, which pad the code after its end, left out)."""
     out, fn = {}, None
     for line in text.splitlines():
         m = re.match(r"\s*Function\s*:\s*(\S+)", line)
         if m:
-            fn = out.setdefault(m.group(1), {})
+            fn = out.setdefault(m.group(1), [])
             continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", line)
-        if m and fn is not None and m.group(1) != "NOP":
-            fn[m.group(1)] = fn.get(m.group(1), 0) + 1
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*)",
+                     line)
+        if m and fn is not None and m.group(3) != "NOP":
+            fn.append((int(m.group(1), 16), bool(m.group(2)), m.group(3), m.group(4)))
     return out
 
 
-def k2_philox_sass():
-    """The SASS of one Philox4x32-10 call as K2 compiles it: K2's source
-    included in a probe with two kernels that load the run key from memory
-    as K2 does (so the key schedule runs per thread), one storing a call's
-    four words and one storing the counter and key words, built with K2's
-    flags; the difference of their instructions by pipe.  ``ops_per_call`` is the
-    call's least issue time in INT32-lane units: the larger of its FMA-pipe
-    and its ALU-pipe instructions (64 lanes an SM each) and half of all its
-    instructions (128 issues an SM); each instruction counted once, and
-    those whose pipe is not certain (VIADD, the uniform datapath's) only in
-    the issue total, so that the bound stays a floor."""
+def _sass_counts(text):
+    """{function: {opcode: count}} from ``cuobjdump -sass``."""
+    out = {}
+    for fn, instrs in _sass_listing(text).items():
+        counts = out.setdefault(fn, {})
+        for _, _, op, _ in instrs:
+            counts[op] = counts.get(op, 0) + 1
+    return out
+
+
+def _sass_min_path(instrs, names):
+    """The fewest instructions whose opcode (before its first dot) is in
+    ``names`` on any path from a function's first instruction to an exit:
+    branches followed both ways, a predicated instruction counted as not
+    executed, a call not entered.  Every run of the function executes at
+    least that many, so a bound built on it stays a floor."""
+    at = {addr: k for k, (addr, *_) in enumerate(instrs)}
+    dist, heap, best = {0: 0}, [(0, 0)], math.inf
+    while heap:
+        d, k = heapq.heappop(heap)
+        if k >= len(instrs):
+            best = min(best, d)
+            continue
+        if d > dist[k]:
+            continue
+        _, pred, op, args = instrs[k]
+        base = op.split(".")[0]
+        d += int(not pred and base in names)
+        cond = pred or op != base or re.match(r"\s*!?U?P[T0-9]+\s*,", args) is not None
+        target = re.search(r"0x([0-9a-f]+)", args)
+        if base in ("EXIT", "RET", "BRX", "JMX", "KILL"):
+            succ = [len(instrs)] + ([k + 1] if cond else [])
+        elif base in ("BRA", "JMP"):
+            succ = [at.get(int(target.group(1), 16), len(instrs)) if target else len(instrs)]
+            succ += [k + 1] if cond else []
+        else:
+            succ = [k + 1]
+        for j in succ:
+            if d < dist.get(j, math.inf):
+                dist[j] = d
+                heapq.heappush(heap, (d, j))
+    return best
+
+
+def k2_sass():
+    """K2's code by pipe, from ``cuobjdump -sass`` of a probe that includes
+    K2's source, built with K2's flags.  ``philox``: one Philox4x32-10 call
+    (two kernels that load the run key from memory as K2 does, so the key
+    schedule runs per thread; one storing a call's four words, one storing
+    the counter and key words; the difference of their instructions).
+    ``ops_per_call`` is the call's least issue time in INT32-lane units:
+    the larger of its FMA-pipe and its ALU-pipe instructions (64 lanes an
+    SM each) and half of all its instructions (128 issues an SM); each
+    instruction counted once, and those whose pipe is not certain (VIADD,
+    the uniform datapath's) only in the issue total, so that the bound
+    stays a floor.  ``transforms``: each mode's cheap and slow test
+    (``K2_TRANSFORMS``), the floating-point instructions on the shortest
+    path through the test (``_sass_min_path``) by pipe: FP32 (FFMA, FMUL,
+    FADD: 128 lanes an SM), FP64 (64 lanes), MUFU (16 lanes); and, as
+    ``cheap_all_paths``/``slow_all_paths``, those of every path through it
+    (the math library's special cases included: more than a run executes).
+    The shortest path through ``log`` or ``lgamma`` is a special case's
+    early exit, so the floor counts little of their work."""
     from klara_tpu_torch.ops import _build
 
     nvcc = _build._nvcc()
@@ -2501,24 +2641,44 @@ def k2_philox_sass():
         return sum(n for op, n in diff.items() if op.split(".")[0] in names)
 
     fma, alu, total = pipe(SASS_FMA_PIPE), pipe(SASS_ALU_PIPE), sum(diff.values())
+    listing = _sass_listing(text)
+    transforms = {}
+    for mode, probes in K2_TRANSFORMS.items():
+        for part, probe in zip(("cheap", "slow"), probes):
+            if probe is not None:
+                instrs = listing[f"k2_probe_{probe}"]
+                transforms.setdefault(mode, {})[part] = {
+                    name: _sass_min_path(instrs, names) for name, names in SASS_FP_PIPES.items()}
+                # every path's instructions: what the test's code holds, not a floor
+                transforms[mode][part + "_all_paths"] = {
+                    name: sum(op.split(".")[0] in names for _, _, op, _ in instrs)
+                    for name, names in SASS_FP_PIPES.items()}
     out = {"opcodes": diff, "fma_pipe": fma, "alu_pipe": alu, "total": total,
-           "ops_per_call": max(fma, alu, total / 2)}
-    print(f"# K2 Philox call in SASS (probe minus base): {json.dumps(out)}", flush=True)
+           "ops_per_call": max(fma, alu, total / 2), "transforms": transforms}
+    print(f"# K2 in SASS (Philox call: probe minus base; transforms: shortest path): "
+          f"{json.dumps(out)}", flush=True)
     return out
 
 
-def k2_bound_ms(n_elements, n_calls, elem_bytes, ops_per_call):
+def k2_bound_ms(n_elements, elem_bytes, n_calls, sass, mode, attempts, slow_tests):
     """The least time the card could take for a keyed draw of ``n_elements``
-    values that makes ``n_calls`` Philox calls in all (this run's data: the
-    rejection loops' calls counted), and which limit sets it: the Philox
-    calls' SASS instructions at the pipes' rates (``k2_philox_sass``), or
-    the output's bytes (the parameters are numbers passed by value) over the
-    memory rate.  The transforms' floating-point work (the logs, the cosine,
-    lgamma; FP64 in the Poisson and binomial modes) is not counted, so for
-    the rejection modes the true floor lies above this bound."""
-    ops_ms = 1e3 * n_calls * ops_per_call / INT32_OPS_PER_S
-    bytes_ms = 1e3 * n_elements * elem_bytes / HBM_BYTES_PER_S
-    return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
+    values that makes ``n_calls`` Philox calls, ``attempts`` cheap tests
+    and ``slow_tests`` slow tests in all (this run's data: the rejection
+    loops' work counted), and which limit sets it: each pipe's instructions
+    (``k2_sass``: the Philox calls on the FMA and ALU pipes and the issue
+    slots; the transforms on the FP32, FP64 and MUFU pipes) at its rate,
+    or the output's bytes (the parameters are numbers passed by value) over
+    the memory rate.  Per-element set-up (the PTRS and BTRS constants, the
+    final scaling) is not counted."""
+    tr = sass["transforms"][mode]
+    fp = {name: attempts * tr["cheap"][name] + slow_tests * tr.get("slow", {}).get(name, 0)
+          for name in SASS_FP_PIPES}
+    secs = {"philox": n_calls * sass["ops_per_call"] / INT32_OPS_PER_S,
+            **{name: n / SASS_FP_RATES[name] for name, n in fp.items()},
+            "issue": (n_calls * sass["total"] + sum(fp.values())) / ISSUE_PER_S,
+            "bytes": n_elements * elem_bytes / HBM_BYTES_PER_S}
+    pipe = max(secs, key=secs.get)
+    return 1e3 * secs[pipe], "bytes" if pipe == "bytes" else "operations", pipe
 
 
 def _k2_compare(stream, mode, dtype, p0=None, p1=None, shape=None):
@@ -2648,10 +2808,116 @@ def _k2_calls_made(mode, calls, params):
     return n
 
 
-def _k2_times(stream, gen, ops_per_call):
-    """Each mode at ``K2_TIME_SHAPES`` with ``K2_TIME_PARAMS`` (f32): K2, its
-    plain version, torch's own call, and the bound from the Philox calls
-    this run's elements made (``ops_per_call``: ``k2_philox_sass``)."""
+def _k2_tests(stream, mode, shape, params, calls):
+    """(cheap tests, slow tests) that an f32 draw's elements made: each
+    attempt's cheap test replayed in torch from the plain version's words
+    and formulas (``keyed.py``), the attempts an element made read from its
+    ``calls``.  Uniform and normal: one transform an element, no slow test.
+    The timed parameters are scalars on the rejection branches (gamma at
+    α ≥ 1, PTRS, BTRS)."""
+    from klara_tpu_torch.ops import keyed
+
+    calls = calls.reshape(-1).long()
+    n = calls.numel()
+    if mode in ("uniform", "normal"):
+        return n, 0
+    ctx = keyed._Ctx(stream, math.prod(shape[1:]), (stream.site << 8) | stream.part)
+    made = calls - 1 if mode == "gamma" else calls  # attempts: f32 gamma's start at call 1
+    idx = torch.arange(n, device=calls.device)
+    f64 = dict(dtype=torch.float64, device=calls.device)
+    if mode == "gamma":
+        assert params[0] >= 1
+        d = torch.full((n,), params[0], dtype=torch.float32, device=calls.device) - 1.0 / 3.0
+        c = keyed._rdiv(1.0, torch.sqrt(9.0 * d))
+    elif mode == "poisson":
+        assert params[0] >= 10
+        L = torch.full((n,), float(params[0]), **f64)
+        b = 0.931 + 2.53 * torch.sqrt(L)
+        a, vr = -0.059 + 0.02483 * b, 0.9277 - keyed._rdiv(3.6224, b - 2.0)
+    else:
+        N, Q = torch.full((n,), float(params[0]), **f64), torch.full((n,), float(params[1]), **f64)
+        assert float(params[0]) * float(params[1]) >= 10 and params[1] <= 0.5
+        stddev = torch.sqrt(N * Q * (1.0 - Q))
+        b = 1.15 + 2.53 * stddev
+        a, c, v_r = -0.0873 + 0.0248 * b + 0.01 * Q, N * Q + 0.5, 0.92 - keyed._rdiv(4.2, b)
+    slow = 0
+    for t in range(int(made.max())):
+        i = idx[made > t]
+        if mode == "gamma":
+            w = ctx.words(i, 1 + t)
+            x, u = keyed._normal(w, False), keyed._u01f(w[2])
+            y = 1.0 + c[i] * x
+            xx = x * x
+            slow += int(((y > 0) & ~(u < 1.0 - 0.0331 * xx * xx)).sum())
+            continue
+        w = ctx.words(i, t)
+        U, V = keyed._u01d(w[0], w[1]) - 0.5, keyed._u01d(w[2], w[3])
+        us = 0.5 - torch.abs(U)
+        if mode == "poisson":
+            k = torch.floor((2.0 * a[i] / us + b[i]) * U + L[i] + 0.43)
+            quick = (us >= 0.07) & (V <= vr[i])
+            bad = (k < 0) | ((us < 0.013) & (V > us))
+        else:
+            k = torch.floor((2.0 * a[i] / us + b[i]) * U + c[i])
+            quick = (us >= 0.07) & (V <= v_r[i])
+            bad = (k < 0) | (k > N[i])
+        slow += int((~quick & ~bad).sum())
+    return int(made.sum()), slow
+
+
+def _host_us(fn, iters=1000, batch=100, warmup=20) -> float:
+    """Host µs a call: perf_counter over ``iters`` calls with no
+    synchronisation inside a batch of ``batch`` (the queue of launches
+    stays below its depth, so a long kernel does not hold the host back);
+    the card is synchronised between batches, outside the clock."""
+    for _ in range(warmup):
+        fn()
+    spent = 0.0
+    for _ in range(iters // batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(batch):
+            fn()
+        spent += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * spent / (iters // batch * batch)
+
+
+def _profiled_kernels(fn, match=None, iters=20):
+    """The device kernels (those whose name holds ``match``, else all) that
+    one torch.profiler session records over ``iters`` calls of ``fn``."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return [e for e in prof.events() if str(e.device_type).endswith("CUDA")
+            and (match is None or match in e.name)]
+
+
+def _device_us(fn, match=None, iters=20, tries=3):
+    """Device µs a call: under torch.profiler, the duration of the call's
+    kernels (those whose name holds ``match``, else all), from a session
+    that recorded a whole number of kernels a call (the profiler can drop
+    records, ``run_keyed_draws``); None where no session of ``tries`` did
+    (not measured)."""
+    for _ in range(tries):
+        kernels = _profiled_kernels(fn, match, iters)
+        if kernels and len(kernels) % iters == 0:
+            return sum(e.time_range.elapsed_us() for e in kernels) / iters
+    return None
+
+
+def _k2_times(stream, gen, sass):
+    """Each mode at ``K2_TIME_SHAPES`` with ``K2_TIME_PARAMS`` (f32): K2
+    and torch's own call in turns, three times each (CUDA events over 50
+    back-to-back launches; the least of the three kept, the machine's host
+    being shared), their host µs a launch (twice each in turns, the less
+    kept) and their device µs (the kernels' own durations); the plain
+    version; the work this run's elements made (cheap and slow tests an
+    element) and the bound that work gives (``k2_bound_ms``)."""
     from klara_tpu_torch.ops import keyed
 
     out = {}
@@ -2662,54 +2928,175 @@ def _k2_times(stream, gen, ops_per_call):
             s = stream.at(chains=shape[0])
             _, calls = keyed.draws(s, m, shape, torch.float32, *params, want_calls=True)
             n_calls = _k2_calls_made(mode, calls, params)
-            bound, by = k2_bound_ms(math.prod(shape), n_calls, 4, ops_per_call)
+            cheap, slow = _k2_tests(s, mode, shape, params, calls)
+            n = math.prod(shape)
+            bound, by, pipe = k2_bound_ms(n, 4, n_calls, sass, mode, cheap, slow)
+            tr = sass["transforms"][mode]
+            # the FP64 pipe's time were every instruction of the tests' code executed
+            fp64_all_paths = 1e3 * (cheap * tr["cheap_all_paths"]["fp64"] + slow * tr.get(
+                "slow_all_paths", {}).get("fp64", 0)) / SASS_FP_RATES["fp64"]
+
+            def k2():
+                keyed.draws(s, m, shape, torch.float32, *params)
+
+            lib = _k2_library(mode, shape, gen, params)
+            runs = [_time_ms(f) for f in (k2, lib) * 3]
+            host = [_host_us(f) for f in (k2, lib) * 2]
+            device, device_lib = _device_us(k2, "keyed_draws"), _device_us(lib)
             out[mode][label] = {
-                "ms": _time_ms(lambda: keyed.draws(s, m, shape, torch.float32, *params)),
+                "ms": min(runs[0::2]), "library_ms": min(runs[1::2]),
+                "ms_runs": runs[0::2], "library_ms_runs": runs[1::2],
+                "host_us": min(host[0::2]), "library_host_us": min(host[1::2]),
+                "device_us": device, "library_device_us": device_lib,
                 "plain_ms": _time_ms(lambda: keyed.draws_reference(s, m, shape, torch.float32,
                                                                    *params),
                                      iters=3, warmup=1),
-                "library_ms": _time_ms(_k2_library(mode, shape, gen, params)),
-                "bound_ms": bound, "bound_by": by, "philox_calls": n_calls,
+                "bound_ms": bound, "bound_by": by, "bound_pipe": pipe, "philox_calls": n_calls,
+                "fp64_all_paths_ms": fp64_all_paths,
+                "cheap_tests_per_element": cheap / n, "slow_tests_per_element": slow / n,
             }
+            print(f"# K2 {mode} {label}: {json.dumps(out[mode][label])}", flush=True)
     print(f"# K2 times (ms, f32): {json.dumps(out)}", flush=True)
     return out
+
+
+def _k2_times_in_a_process(sass, device="cuda"):
+    """``_k2_times`` in a process of its own (``--k2-times-worker``), on the
+    stream and generator phase 27 starts from: its host and device readings
+    then follow no earlier phase's state.  In a process that has run many
+    phases torch.profiler records fewer and fewer of K2's kernels (none late
+    in a whole run: ``run_keyed_draws`` reads how many); a fresh process
+    records them all."""
+    tmp = tempfile.mkdtemp(prefix="klara_k2_times_")
+    proc = None
+    try:
+        with open(os.path.join(tmp, "sass.json"), "w") as f:
+            json.dump(sass, f)
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--k2-times-worker",
+                                 tmp, device], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        out = proc.communicate(timeout=K2_TIMES_TIMEOUT)[0]
+        print("\n".join(line for line in out.splitlines() if line.startswith("# K2 ")), flush=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"phase 27's timing process failed (exit {proc.returncode}):\n"
+                               + out[-3000:])
+        with open(os.path.join(tmp, "times.json")) as f:
+            return json.load(f)
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def k2_times_worker(tmp, device="cuda"):
+    """Phase 27's timing process: the stream of ``run_keyed_draws`` at site
+    30, the times written to ``tmp``/times.json."""
+    sys.path.insert(0, REPO)
+    from klara_tpu_torch.ops import keyed
+
+    with open(os.path.join(tmp, "sass.json")) as f:
+        sass = json.load(f)
+    gen = torch.Generator(device=device).manual_seed(27)
+    stream = keyed.KeyedStream(keyed.run_key(gen, device), K2_COMPARE_SHAPE[0], offset=12288,
+                               step=5, site=30)
+    times = _k2_times(stream, gen, sass)
+    torch.cuda.synchronize()
+    keyed.raise_on_overflow()
+    times["profiler_k2_kernels_of_20"] = len(_k2_profiler_probe(stream))
+    with open(os.path.join(tmp, "times.json"), "w") as f:
+        json.dump(times, f)
+
+
+def _k2_profiler_probe(stream):
+    """The K2 kernels one torch.profiler session records over 20 normal
+    draws at 4096 x 30 (all 20 in a fresh process)."""
+    from klara_tpu_torch.ops import keyed
+
+    s = stream.at(chains=4096, site=31)
+    return _profiled_kernels(lambda: keyed.draws(s, keyed.MODES["normal"], (4096, 30),
+                                                 torch.float32), "keyed_draws", 20)
+
+
+def _k2_kernels():
+    """Registers, spills, shared memory, threads and blocks an SM of each
+    (mode, type) kernel of K2 as built."""
+    from klara_tpu_torch.ops import keyed
+
+    out = {f"{mode}_{str(dt).split('.')[-1]}": keyed.kernel_info(m, dt)
+           for mode, m in keyed.MODES.items() for dt in (torch.float32, torch.float64)}
+    print(f"# K2 kernels: {json.dumps(out)}", flush=True)
+    return out
+
+
+def _k2_resident_threads(m, dtype):
+    """Threads of K2's (mode, type) kernel the card holds at once: a draw of
+    more elements makes each thread stride over several."""
+    from klara_tpu_torch.ops import keyed
+
+    info = keyed.kernel_info(m, dtype)
+    sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+    return info["blocks_per_sm"] * info["threads"] * sms
 
 
 def run_keyed_draws(device="cuda"):
     """Phase 27: K2 against its plain version on the card in every mode and
     both types (the f64 uniforms bit for bit hold Philox words 0-1, the f64
-    normals words 0-3), and gamma at the rats sweep's scalar shapes; the
+    normals words 0-3), at 4096 x 30 and at 16384 x 100 (on the grid, and at
+    the timed parameters), and gamma at the rats sweep's scalar shapes; the
     moments of 10^6 draws per grid point against the exact ones; the
-    overflow counter at 0; the Philox call's SASS; the times."""
+    overflow counter at 0; K2's kernels (registers, blocks an SM) and its
+    code by pipe (SASS); the times and the work each mode's elements made."""
     from klara_tpu_torch.ops import keyed
 
     t_phase = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(27)
     stream = keyed.KeyedStream(keyed.run_key(gen, device), K2_COMPARE_SHAPE[0], offset=12288,
                                step=5, site=2)
-    compared = []
+    compared, rats, big = [], [], K2_TIME_SHAPES["c16384_e100"]
     for dtype in (torch.float32, torch.float64):
         for mode in keyed.MODES:
             params = _k2_grid_params(mode, K2_COMPARE_SHAPE, device)
             compared.append(_k2_compare(stream.at(site=3 + keyed.MODES[mode]), mode, dtype,
                                         *params))
         for j, alpha in enumerate(K2_RATS_ALPHAS):
-            compared.append(_k2_compare(stream.at(site=10 + j), "gamma", dtype, alpha,
-                                        shape=K2_RATS_GAMMA_SHAPE))
+            rats.append(_k2_compare(stream.at(site=10 + j), "gamma", dtype, alpha,
+                                    shape=K2_RATS_GAMMA_SHAPE))
+        # the widest timed shape, where each thread strides over several elements
+        # (the constants it keeps, its (chain, element) steps): the grid and the timed
+        # parameters
+        for mode, m in keyed.MODES.items():
+            resident = _k2_resident_threads(m, dtype)
+            if math.prod(big) <= resident:
+                raise RuntimeError(f"K2 {mode} {dtype} holds {resident} threads at once: "
+                                   f"{big} does not make a thread stride")
+            compared.append(_k2_compare(stream.at(chains=big[0], site=40 + m), mode, dtype,
+                                        *_k2_grid_params(mode, big, device), shape=big))
+            if K2_TIME_PARAMS[mode]:
+                compared.append(_k2_compare(stream.at(chains=big[0], site=50 + m), mode, dtype,
+                                            *K2_TIME_PARAMS[mode], shape=big))
+    compared += rats
     worst_z = _k2_moments(stream.at(site=20))
-    sass = k2_philox_sass()
-    times = _k2_times(stream.at(site=30), gen, sass["ops_per_call"])
+    kernels = _k2_kernels()
+    sass = k2_sass()
+    # the profiler's records in this process, against the timing process's
+    profiler_here = len(_k2_profiler_probe(stream))
+    times = _k2_times_in_a_process(sass, device)
+    profiler_there = times.pop("profiler_k2_kernels_of_20")
     torch.cuda.synchronize()
     overflow = int(keyed.overflow_counter(device)[0])
     if overflow:
         raise RuntimeError(f"K2's overflow counter reads {overflow}")
     keyed._PENDING.clear()
-    res = {"seconds": time.perf_counter() - t_phase, "philox_sass": sass,
-           "rats_gamma": [c for c in compared if c["params"]],
+    res = {"seconds": time.perf_counter() - t_phase, "sass": sass, "kernels": kernels,
+           "rats_gamma": rats,
            "max_abs_err": max(c["max_abs_err"] for c in compared if c["mode"] != "uniform"),
            "max_normal_ulps": max(c["max_ulps"] for c in compared if c["mode"] == "normal"),
            "max_other_attempt_share": max(c.get("other_attempt_share", 0.0) for c in compared),
-           "worst_moment_z": worst_z, "overflow": overflow, "times": times}
+           "worst_moment_z": worst_z, "overflow": overflow,
+           "profiler_k2_kernels_of_20": {"this_process": profiler_here,
+                                         "timing_process": profiler_there},
+           "times": times}
     print(f"# phase 27 (K2 keyed draws): {json.dumps({k: v for k, v in res.items() if k != 'times'})}",
           flush=True)
     return res
@@ -2797,7 +3184,8 @@ def main():
                           *((200, 20) if profile_dir else (GIBBS_PROFILE_SWEEPS, 5)))
     print(f"# phase 9 per sweep: {gprof['device_kernels_per_sweep']} kernels "
           f"({gprof['k2_kernels_per_sweep']} K2), {gibbs['ms_per_sweep']} ms of the run's wall, "
-          f"{gprof['device_busy_us_per_sweep']} us of device time", flush=True)
+          f"{gprof['device_busy_us_per_sweep']} us of device time, "
+          f"{gprof['k2_host_us_per_sweep']} us of host time in its K2 draws", flush=True)
     nested = run_gibbs_nested(gibbs["by_key"])
     zoo = run_zoo_logreg(x_end, chees_summary)
     ars = run_zoo_ars()
@@ -2893,6 +3281,7 @@ def main():
     }, {
         "name": "K2 keyed_draws",
         "route": "cuda",
+        "design": "a kernel per (mode, type), one thread an element",
         "source": "klara_tpu_torch/ops/csrc/keyed_draws.cu",
         # no Pallas kernel: the counterpart of the JAX package's per-chain keys
         "replaces": None,
@@ -2907,6 +3296,7 @@ def main():
         **{k: keyed_draws["times"]["normal"]["c4096_e30"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "by_mode": keyed_draws["times"],
+        "kernels_by_mode": keyed_draws["kernels"],
     }]}
     print(json.dumps(kernels))
     print(card)
@@ -2919,5 +3309,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-worker"]:
         rank_worker(int(sys.argv[2]), sys.argv[3], sys.argv[4], sys.argv[5])
+    elif sys.argv[1:2] == ["--k2-times-worker"]:
+        k2_times_worker(sys.argv[2], sys.argv[3])
     else:
         main()

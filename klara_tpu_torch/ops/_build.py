@@ -27,14 +27,13 @@ NVCC_FLAGS = (
 # K2 rounds every multiply and add apart, as its plain version does
 EXTRA_FLAGS = {"keyed_draws": ("-fmad=false",)}
 
-_P, _I, _U, _D, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_double,
-                      ctypes.c_longlong)
-# each library's entry point and its C signature
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# each library's entry points and their C signatures
 ENTRY = {
-    "logreg": ("klara_logreg_value_grad_tf32", [_P] * 6 + [_I] * 5 + [ctypes.c_float] * 2 + [_P]),
-    "keyed_draws": ("klara_keyed_draws",
-                    [_I, _I, _P, _P, _P, _P, _P, _U, _U, _U, _I, _I,
-                     _P, _D, _L, _L, _P, _D, _L, _L, _P]),
+    "logreg": {"klara_logreg_value_grad_tf32": [_P] * 6 + [_I] * 5 + [ctypes.c_float] * 2 + [_P]},
+    # the launch arguments packed in one struct (keyed.py: _ARGS), the stream
+    "keyed_draws": {"klara_keyed_draws": [ctypes.c_char_p, _P],
+                    "klara_keyed_draws_info": [_I, _I, _P]},
 }
 
 _libs = {}
@@ -91,9 +90,9 @@ def load(name: str = "logreg") -> ctypes.CDLL:
     if name not in _libs:
         paths = build()
         lib = ctypes.CDLL(paths[name])
-        symbol, argtypes = ENTRY[name]
-        fn = getattr(lib, symbol)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for symbol, argtypes in ENTRY[name].items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _libs[name] = lib
     return _libs[name]

@@ -57,19 +57,29 @@ int64 arithmetic (the 32 x 32 products split into 16-bit halves, since
 int64 overflows past 2^63) and the same transforms in the same order of
 operations; it is what CPU tensors take, and what ``chip_smoke.py`` holds
 the kernel to on the card.  Bound on the H100: the SASS instructions of
-its Philox calls, issued at the FMA and ALU pipes' 64 lanes and the
-schedulers' 128 issues per SM and clock (``chip_smoke.py`` counts them from
-``cuobjdump -sass`` of K2's own code), or its bytes (the output and the
-parameters, once each), the larger.
+its Philox calls and of the cheap and slow tests its elements ran, each
+pipe at its rate (``chip_smoke.py`` counts them from ``cuobjdump -sass``
+of K2's own code and weights them by a run's attempts), or its bytes, the
+larger.
+
+A launch does on the host only what changes from launch to launch: a
+stream checks its fields when it is made, what follows from a draw's
+(chains, mode, shape, type, parameter layouts) is kept as integers
+(``launch_args``), and the kernel takes one packed struct of arguments
+(``_ARGS``) and the raw stream handle in one ctypes call.
 """
 
 from __future__ import annotations
 
-import dataclasses
+import ctypes
 import math
-from typing import Any
+import operator
+import struct
+from typing import Any, NamedTuple
 
 import torch
+
+from klara_tpu_torch.ops import _build
 
 UNIFORM, NORMAL, GAMMA, POISSON, BINOMIAL = range(5)
 MODES = {"uniform": UNIFORM, "normal": NORMAL, "gamma": GAMMA, "poisson": POISSON,
@@ -186,20 +196,32 @@ def run_key(generator, device):
 
 
 # ------------------------------------------------------------------ stream
-@dataclasses.dataclass(frozen=True)
+_SAME = object()  # ``KeyedStream.at``: keep the field
+
+
 class KeyedStream:
     """Keyed draws for ``chains`` chains whose first has the global index
     ``offset``, at counter (``step``, ``site``, ``part``).  ``key`` is a 0-d
     int64 tensor (``run_key``) on the draws' device; ``step`` a number or a
     0-d int64 tensor on that device.  Every draw's shape has the chains on
-    axis 0; the element counter runs over the rest of it."""
+    axis 0; the element counter runs over the rest of it.
 
-    key: torch.Tensor
-    chains: int
-    offset: int = 0
-    step: Any = 0
-    site: int = 0
-    part: int = 0
+    A stream is immutable and checks its fields once, when it is made:
+    whatever its counter cannot name raises here (and in ``at``), not at a
+    draw.  It keeps the counter words its fields give (the site word, an
+    int step's word), so that a launch only reads them."""
+
+    __slots__ = ("_key", "_chains", "_offset", "_step", "_site", "_part", "_device",
+                 "_site_word", "_step_add", "_step_tensor")
+
+    def __init__(self, key, chains: int, offset: int = 0, step: Any = 0, site: int = 0,
+                 part: int = 0):
+        if not (torch.is_tensor(key) and key.dtype == torch.int64 and key.numel() == 1):
+            raise ValueError("keyed draws: the run key is a 0-d int64 tensor (run_key)")
+        self._key, self._device = key, key.device
+        self._set_chains(chains, offset)
+        self._set_step(step)
+        self._set_site(site, part)
 
     @classmethod
     def for_run(cls, generator, device, chains: int, offset: int = 0):
@@ -207,31 +229,77 @@ class KeyedStream:
         (which must be on ``device``)."""
         return cls(run_key(generator, device), chains, offset)
 
-    @property
-    def device(self):
-        return self.key.device
+    key = property(lambda self: self._key)
+    chains = property(lambda self: self._chains)
+    offset = property(lambda self: self._offset)
+    step = property(lambda self: self._step)
+    site = property(lambda self: self._site)
+    part = property(lambda self: self._part)
+    device = property(lambda self: self._device)
 
-    def at(self, **kw) -> "KeyedStream":
-        """The stream at another ``step``, ``site``, ``part`` or chain count."""
-        return dataclasses.replace(self, **kw)
+    def __repr__(self):
+        return (f"KeyedStream(chains={self._chains}, offset={self._offset}, step={self._step!r}, "
+                f"site={self._site}, part={self._part}, device={self._device})")
+
+    def _set_chains(self, chains, offset):
+        chains, offset = operator.index(chains), operator.index(offset)
+        if chains < 0 or offset < 0 or offset + chains > 2**32:
+            raise ValueError(f"keyed draws: chains [{offset}, {offset + chains}) out of range")
+        self._chains, self._offset = chains, offset
+
+    def _set_step(self, step):
+        if torch.is_tensor(step):
+            check_device("the step", step.device, self._device)
+            if step.dtype != torch.int64 or step.numel() != 1:
+                raise ValueError("keyed draws: a tensor step is a 0-d int64 on the stream's "
+                                 "device")
+            self._step_tensor, self._step_add = step, 0
+        else:
+            self._step_tensor, self._step_add = None, operator.index(step) & _MASK
+        self._step = step
+
+    def _set_site(self, site, part):
+        site, part = operator.index(site), operator.index(part)
+        if not 0 <= site <= MH_SITE or not 0 <= part < 256:
+            raise ValueError(f"keyed draws: site {site} or part {part} out of range")
+        self._site, self._part, self._site_word = site, part, (site << 8) | part
+
+    def at(self, *, step=_SAME, site=_SAME, part=_SAME, chains=_SAME, offset=_SAME):
+        """The stream at another ``step``, ``site``, ``part``, chain count
+        or offset; the other fields kept (and not checked again)."""
+        new = object.__new__(KeyedStream)
+        new._key, new._device = self._key, self._device
+        if chains is _SAME and offset is _SAME:
+            new._chains, new._offset = self._chains, self._offset
+        else:
+            new._set_chains(self._chains if chains is _SAME else chains,
+                            self._offset if offset is _SAME else offset)
+        if step is _SAME:
+            new._step, new._step_add, new._step_tensor = (self._step, self._step_add,
+                                                          self._step_tensor)
+        else:
+            new._set_step(step)
+        if site is _SAME and part is _SAME:
+            new._site, new._part, new._site_word = self._site, self._part, self._site_word
+        else:
+            new._set_site(self._site if site is _SAME else site,
+                          self._part if part is _SAME else part)
+        return new
 
     def uniform(self, shape, dtype=torch.float32):
-        return self._draw(UNIFORM, shape, dtype)
+        return draws(self, UNIFORM, shape, dtype)[0]
 
     def normal(self, shape, dtype=torch.float32):
-        return self._draw(NORMAL, shape, dtype)
+        return draws(self, NORMAL, shape, dtype)[0]
 
     def standard_gamma(self, alpha, shape, dtype=torch.float32):
-        return self._draw(GAMMA, shape, dtype, alpha)
+        return draws(self, GAMMA, shape, dtype, alpha)[0]
 
     def poisson(self, rate, shape, dtype=torch.float32):
-        return self._draw(POISSON, shape, dtype, rate)
+        return draws(self, POISSON, shape, dtype, rate)[0]
 
     def binomial(self, count, prob, shape, dtype=torch.float32):
-        return self._draw(BINOMIAL, shape, dtype, count, prob)
-
-    def _draw(self, mode, shape, dtype, p0=None, p1=None):
-        return draws(self, mode, shape, dtype, p0, p1)[0]
+        return draws(self, BINOMIAL, shape, dtype, count, prob)[0]
 
 
 def _counter(stream: KeyedStream, shape, dtype, params=()):
@@ -481,29 +549,126 @@ def _binomial_ref(ctx, n, p, calls):
 
 
 # ------------------------------------------------------------------ kernel
-def _param_2d(p, shape, dtype):
-    """(tensor or None, scalar, chain stride, element stride) of a parameter
-    broadcast to ``shape`` (C, ...): a view where its non-chain axes
-    collapse to one stride, else a contiguous copy."""
-    if p is None:
-        return None, 0.0, 0, 0
+# K2's launch arguments, packed as its entry point reads them (``struct Args``
+# in csrc/keyed_draws.cu): pointers (0: none), the scalar parameters, the
+# parameter strides (chain, element; in elements), the counter words (step,
+# site << 8 | part, the first chain's index), the draw's chains and elements
+# per chain, the mode, the type (f64) and the device index
+ARG_FIELDS = ("out", "calls", "overflow", "key", "step", "p0", "p1", "s0", "s1", "p0c", "p0e",
+              "p1c", "p1e", "step_add", "site_word", "offset", "chains", "elems", "mode", "f64",
+              "device")
+_ARGS = struct.Struct("<7Q2d4q3I5i")
+_PLANS = {}        # (chains, mode, shape, dtype, layouts) -> _Plan: integers only
+_MAX_PLANS = 4096
+_SCALAR = "scalar"
+_NO_PARAM = (None, 0.0, 0, 0)
+_launch = None     # K2's ctypes entry point, once loaded
+_raw_stream = None  # torch's raw current-stream handle of a device index
+
+
+class _Plan(NamedTuple):
+    shape: tuple
+    elems: int
+    p0: tuple  # (convert to the draw's type, copy contiguous, chain stride, element stride)
+    p1: tuple
+
+
+def _layout(p):
+    if isinstance(p, torch.Tensor):
+        return p.dtype, p.shape, p.stride()
+    return _SCALAR
+
+
+def _param_plan(p, shape, dtype):
+    """How the kernel reads a parameter broadcast to ``shape`` (C, ...): a
+    view where its non-chain axes collapse to one stride, else a contiguous
+    copy; in the draw's type."""
     if not torch.is_tensor(p):
-        return None, float(p), 0, 0
+        return None
+    convert = p.dtype != dtype
     t = p.to(dtype).expand(shape)
     sc = t.stride(0) if shape[0] > 1 else 0
     dims = [(n, s) for n, s in zip(t.shape[1:], t.stride()[1:]) if n > 1]
     if all(s0 == s1 * n1 for (_, s0), (n1, s1) in zip(dims, dims[1:])):
-        return t, 0.0, sc, dims[-1][1] if dims else 0
-    t = t.contiguous()
-    return t, 0.0, t.stride(0) if shape[0] > 1 else 0, 1
+        return (convert, False, sc, dims[-1][1] if dims else 0)
+    return (convert, True, math.prod(shape[1:]) if shape[0] > 1 else 0, 1)
+
+
+def _make_plan(chains, mode, shape, dtype, p0, p1):
+    shape = tuple(int(s) for s in shape)
+    if not shape or shape[0] != chains:
+        raise ValueError(f"keyed draw of shape {shape}: axis 0 is not the stream's "
+                         f"{chains} chains")
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"keyed draws are float32 or float64, not {dtype}")
+    if mode not in _MODE_NAMES:
+        raise ValueError(f"unknown keyed-draw mode {mode}")
+    elems = math.prod(shape[1:])
+    if elems >= MAX_ELEMENTS:
+        raise ValueError(f"keyed draw of {elems} elements per chain: at most {MAX_ELEMENTS - 1}")
+    return _Plan(shape, elems, _param_plan(p0, shape, dtype), _param_plan(p1, shape, dtype))
+
+
+def _param(p, plan, shape, dtype, device):
+    """(tensor or None, scalar, chain stride, element stride) of one
+    launch; a tensor's device is checked at every launch."""
+    if not isinstance(p, torch.Tensor):
+        return None, float(p), 0, 0
+    if p.device != device:
+        check_device("a parameter", p.device, device)
+    convert, copy, sc, se = plan
+    if convert:
+        p = p.to(dtype)
+    if copy:
+        p = p.expand(shape).contiguous()
+    return p, 0.0, sc, se
+
+
+def launch_args(stream: KeyedStream, mode, shape, dtype, p0=None, p1=None):
+    """``(shape, tensors, fields)`` of one K2 launch (a pure function of its
+    inputs; the CPU tests call it): the draw's shape, the parameter tensors
+    the kernel reads (a converted or copied parameter is a new tensor, kept
+    alive until the launch), and the launch struct's fields after ``out``
+    and ``calls`` (``ARG_FIELDS[2:]``).  What follows from (chains, mode,
+    shape, dtype, the parameters' types and layouts) is worked out once and
+    kept as integers; the tensors' pointers and devices are read at every
+    launch."""
+    if type(shape) is not tuple:
+        shape = tuple(shape)
+    # a Python float (the common scalar) takes no call
+    key = (stream._chains, mode, shape, dtype,
+           None if p0 is None else _SCALAR if type(p0) is float else _layout(p0),
+           None if p1 is None else _SCALAR if type(p1) is float else _layout(p1))
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = _make_plan(stream._chains, mode, shape, dtype, p0, p1)
+        if len(_PLANS) >= _MAX_PLANS:
+            _PLANS.clear()
+        _PLANS[key] = plan
+    device = stream._device
+    t0, s0, c0, e0 = (_NO_PARAM if p0 is None else (None, p0, 0, 0) if type(p0) is float
+                      else _param(p0, plan.p0, plan.shape, dtype, device))
+    t1, s1, c1, e1 = (_NO_PARAM if p1 is None else (None, p1, 0, 0) if type(p1) is float
+                      else _param(p1, plan.p1, plan.shape, dtype, device))
+    step, overflow = stream._step_tensor, _OVERFLOW.get(device)
+    if overflow is None:
+        overflow = overflow_counter(device)
+    return plan.shape, (t0, t1), (
+        overflow.data_ptr(), stream._key.data_ptr(), 0 if step is None else step.data_ptr(),
+        0 if t0 is None else t0.data_ptr(), 0 if t1 is None else t1.data_ptr(), s0, s1, c0, e0,
+        c1, e1, stream._step_add, stream._site_word, stream._offset, stream._chains, plan.elems,
+        mode, dtype is torch.float64, device.index)
 
 
 def overflow_counter(device) -> torch.Tensor:
     """The device's count of elements that reached their cap (int32 (1,))."""
-    device = torch.device(device)
-    if device not in _OVERFLOW:
-        _OVERFLOW[device] = torch.zeros(1, dtype=torch.int32, device=device)
-    return _OVERFLOW[device]
+    count = _OVERFLOW.get(device)
+    if count is None:
+        device = torch.device(device)
+        if device not in _OVERFLOW:
+            _OVERFLOW[device] = torch.zeros(1, dtype=torch.int32, device=device)
+        count = _OVERFLOW[device]
+    return count
 
 
 def raise_on_overflow() -> None:
@@ -518,50 +683,51 @@ def raise_on_overflow() -> None:
                                "rejection loop (written as NaN)")
 
 
+def _load():
+    """K2's entry point and torch's raw-stream query, at the first launch."""
+    global _launch, _raw_stream
+    _launch = _build.load("keyed_draws").klara_keyed_draws
+    _raw_stream = torch._C._cuda_getCurrentRawStream
+    return _launch
+
+
+def kernel_info(mode, dtype) -> dict:
+    """K2's kernel for (mode, dtype) on the current device, as built:
+    registers and local (spill) bytes a thread, static shared bytes and
+    threads a block, blocks resident on an SM."""
+    info = (ctypes.c_int * 5)()
+    rc = _build.load("keyed_draws").klara_keyed_draws_info(
+        mode, int(dtype == torch.float64), ctypes.addressof(info))
+    if rc != 0:
+        raise RuntimeError(f"K2 kernel info failed: cudaError {rc}")
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "threads", "blocks_per_sm"),
+                    info))
+
+
 def draws(stream: KeyedStream, mode, shape, dtype, p0=None, p1=None, want_calls=False):
     """``(values, calls or None)`` of one keyed draw.  CUDA streams launch
-    K2 on the current stream (no synchronisation; the overflow counter
-    stays on the device); CPU streams take ``draws_reference`` and raise at
-    once if an element reached its cap.  A tensor parameter or step on
-    another device than the stream's key raises on either path."""
-    if stream.device.type == "cpu":
+    K2 on the device's current stream: the output allocated on the key's
+    device, the arguments packed (``launch_args``), one ctypes call, no
+    synchronisation (the overflow counter stays on the device).  CPU
+    streams take ``draws_reference`` and raise at once if an element
+    reached its cap.  A tensor parameter or step on another device than the
+    stream's key raises on either path."""
+    if stream._device.type == "cpu":
         out, calls, overflow = draws_reference(stream, mode, shape, dtype, p0, p1)
         if overflow:
             raise RuntimeError(f"keyed draws: {overflow} element(s) reached the cap of "
                                "their rejection loop")
         return out, calls if want_calls else None
     global KERNEL_LAUNCHES
-    shape, elems, site_word = _counter(stream, shape, dtype, (p0, p1))
-    if mode not in _MODE_NAMES:
-        raise ValueError(f"unknown keyed-draw mode {mode}")
-    device = stream.device
-    from klara_tpu_torch.ops import _build
-
-    lib = _build.load("keyed_draws")
-    out = torch.empty(shape, dtype=dtype, device=device)
-    calls = torch.empty(shape, dtype=torch.int32, device=device) if want_calls else None
-    params = [_param_2d(p, shape, dtype) for p in (p0, p1)]
-    step = stream.step
-    if torch.is_tensor(step):
-        if step.dtype != torch.int64 or step.numel() != 1:
-            raise ValueError("K2: a tensor step is a 0-d int64 on the stream's device")
-        step_ptr, step_add = step.data_ptr(), 0
-    else:
-        step_ptr, step_add = None, int(step) & _MASK
-    if stream.key.dtype != torch.int64 or stream.key.numel() != 1:
-        raise ValueError("K2: the run key is a 0-d int64 tensor (run_key)")
-    with torch.cuda.device(device):
-        rc = lib.klara_keyed_draws(
-            mode, int(dtype == torch.float64), out.data_ptr(),
-            None if calls is None else calls.data_ptr(), overflow_counter(device).data_ptr(),
-            stream.key.data_ptr(), step_ptr, step_add, site_word, stream.offset, shape[0], elems,
-            *(x for (t, s, sc, se) in params
-              for x in (None if t is None else t.data_ptr(), s, sc, se)),
-            torch.cuda.current_stream(device).cuda_stream,
-        )
+    shape, _tensors, fields = launch_args(stream, mode, shape, dtype, p0, p1)
+    key = stream._key
+    out = key.new_empty(shape, dtype=dtype)
+    calls = key.new_empty(shape, dtype=torch.int32) if want_calls else None
+    rc = (_launch or _load())(_ARGS.pack(out.data_ptr(), 0 if calls is None else calls.data_ptr(),
+                                         *fields), _raw_stream(fields[-1]))
     if rc != 0:
         raise RuntimeError(f"K2 launch failed: cudaError {rc}")
     KERNEL_LAUNCHES += 1
     LAUNCHES_BY_MODE[_MODE_NAMES[mode]] += 1
-    _PENDING.add(device)
+    _PENDING.add(stream._device)
     return out, calls

@@ -323,3 +323,151 @@ def test_every_class_draws_from_a_keyed_stream(name):
     assert tuple(whole.shape) == (C,) + event and torch.equal(part, whole[3:])
     assert bool(torch.isfinite(whole).all())
     assert bool(torch.isfinite(dist.logpdf(whole.to(torch.float32))).all())
+
+
+# ------------------------------------------------------- K2's launch path
+def _launch(stream, mode, shape, dtype, *params):
+    """``launch_args`` with its fields by name (``ARG_FIELDS`` after out and
+    calls) and the parameter tensors the kernel reads."""
+    shape, tensors, fields = keyed.launch_args(stream, mode, shape, dtype, *params)
+    return shape, tensors, dict(zip(keyed.ARG_FIELDS[2:], fields))
+
+
+def _read_as_kernel(t, chain_stride, elem_stride, shape):
+    """What K2 reads for a parameter: element (c, e) at the tensor's own
+    pointer plus c * chain_stride + e * elem_stride elements."""
+    return torch.as_strided(t, shape, (chain_stride, elem_stride), t.storage_offset())
+
+
+def _param_cases():
+    g = torch.Generator().manual_seed(1)
+    C, E = 6, 5
+    wide = 1.0 + torch.rand(C, 2 * E, generator=g, dtype=torch.float64)
+    return {
+        "scalar": 2.5,
+        "chain (C, 1)": 1.0 + torch.rand(C, 1, generator=g),
+        "element (1, E)": 1.0 + torch.rand(1, E, generator=g),
+        "full (C, E)": 1.0 + torch.rand(C, E, generator=g),
+        "non-contiguous (C, E)": wide[:, ::2],
+        "transposed (C, E)": (1.0 + torch.rand(E, C, generator=g)).t(),
+        "0-d": torch.tensor(3.0),
+        "(C,) of (C, 1, E)": 1.0 + torch.rand(C, 1, 1, generator=g),
+    }
+
+
+PARAMS = _param_cases()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("name", sorted(PARAMS))
+def test_launch_args_give_the_plain_versions_parameters(name, dtype):
+    """The kernel's view of a parameter (its pointer and two strides, or the
+    scalar) reads the values the plain version draws with, in the draw's
+    type; (C, E) draws, and a (C, 1, E) draw for the 3-d case."""
+    p = PARAMS[name]
+    shape = (6, 1, 5) if name.startswith("(C,)") else (6, 5)
+    s = _stream(chains=6)
+    got, (t0, t1), f = _launch(s, GAMMA, shape, dtype, p)
+    want = keyed._flat_param(p, shape, dtype, torch.device("cpu")).reshape(6, 5)
+    assert got == shape and f["elems"] == 5 and t1 is None and f["p1"] == 0
+    assert f["f64"] == (dtype == torch.float64) and f["mode"] == GAMMA
+    if name == "scalar":
+        assert t0 is None and f["p0"] == 0 and f["s0"] == p and (f["p0c"], f["p0e"]) == (0, 0)
+        return
+    assert t0.dtype == dtype and f["p0"] == t0.data_ptr()
+    assert torch.equal(_read_as_kernel(t0, f["p0c"], f["p0e"], (6, 5)), want)
+    if p.dtype == dtype and name != "transposed (C, E)":
+        assert t0.data_ptr() == p.data_ptr()  # read in place, no copy
+
+
+@pytest.mark.parametrize("offset", [0, 12288])
+@pytest.mark.parametrize("step", [0, 7, 2**32 + 3, "tensor"])
+@pytest.mark.parametrize("site,part", [(0, 0), (3, 1), (keyed.MH_SITE, 255)])
+def test_launch_args_give_the_plain_versions_counter_words(offset, step, site, part):
+    """Counter words 1 and 2, the elements per chain and the chains: those
+    the plain version's counter (``_counter``, ``_Ctx``) uses; the key and a
+    tensor step by their pointers."""
+    st = torch.tensor(2**32 + 9) if step == "tensor" else step
+    s = _stream(chains=4, offset=offset).at(step=st, site=site, part=part)
+    got, _, f = _launch(s, BINOMIAL, (4, 3, 2), torch.float32, 10.0, torch.full((4, 1, 1), 0.3))
+    shape, elems, site_word = keyed._counter(s, (4, 3, 2), torch.float32)
+    ctx = keyed._Ctx(s, elems, site_word)
+    assert (got, f["elems"], f["site_word"]) == (shape, elems, site_word)
+    assert f["key"] == s.key.data_ptr()
+    if step == "tensor":
+        assert f["step"] == st.data_ptr() and f["step_add"] == 0
+    else:
+        assert f["step"] == 0
+    assert (f["step_add"] + (0 if step != "tensor" else int(st))) & 0xFFFFFFFF == ctx.c1
+    assert (f["offset"], f["chains"]) == (ctx.offset, 4) == (offset, 4)
+    assert (f["p0"], f["s0"], f["p1c"], f["p1e"]) == (0, 10.0, 1, 0)
+
+
+def test_launch_args_pack_into_the_kernels_struct():
+    """The packed arguments are the 136 bytes of ``struct Args`` in
+    keyed_draws.cu, one field each of ``ARG_FIELDS``, in its order."""
+    assert keyed._ARGS.size == 136 and len(keyed.ARG_FIELDS) == 21
+    src = open(keyed._build.CSRC + "/keyed_draws.cu").read()
+    assert "static_assert(sizeof(Args) == 136" in src
+    fields = (1, 2, 3, 4, 5, 6, 7, 0.5, 0.25, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 1, 0)
+    assert keyed._ARGS.unpack(keyed._ARGS.pack(*fields)) == fields
+
+
+def test_the_launch_plan_keeps_integers_and_reads_tensors_at_every_launch():
+    """Two parameters of one layout share a plan, but each launch takes its
+    own tensor's pointer and checks its device."""
+    s = _stream(chains=4)
+    t1, t2 = torch.full((4, 1), 2.0), torch.full((4, 1), 3.0)
+    _, (a1, _), f1 = _launch(s, GAMMA, (4, 2), torch.float32, t1)
+    _, (a2, _), f2 = _launch(s, GAMMA, (4, 2), torch.float32, t2)
+    assert a1 is t1 and a2 is t2 and (f1["p0"], f2["p0"]) == (t1.data_ptr(), t2.data_ptr())
+    assert (f1["p0c"], f1["p0e"]) == (f2["p0c"], f2["p0e"]) == (1, 0)
+    plans = [v for v in keyed._PLANS.values() if v.shape == (4, 2)]
+    assert all(not torch.is_tensor(x) for v in plans for x in (*v.p0, *(v.p1 or ())))
+    with pytest.raises(ValueError, match="a parameter is on meta"):
+        keyed.launch_args(s, GAMMA, (4, 2), torch.float32, torch.full((4, 1), 2.0, device="meta"))
+
+
+REFUSED = {
+    "a key that is not int64": (dict(key=torch.tensor(3, dtype=torch.int32)), "0-d int64"),
+    "a key of two words": (dict(key=torch.zeros(2, dtype=torch.int64)), "0-d int64"),
+    "negative chains": (dict(chains=-1), "out of range"),
+    "chains past 2^32": (dict(chains=8, offset=2**32 - 4), "out of range"),
+    "a negative offset": (dict(offset=-1), "out of range"),
+    "site 2^24": (dict(site=1 << 24), "out of range"),
+    "a negative site": (dict(site=-1), "out of range"),
+    "part 256": (dict(part=256), "out of range"),
+    "an int32 step tensor": (dict(step=torch.tensor(3, dtype=torch.int32)), "0-d int64"),
+    "a step tensor of two": (dict(step=torch.zeros(2, dtype=torch.int64)), "0-d int64"),
+    "a step on another device": (dict(step=torch.zeros((), dtype=torch.int64, device="meta")),
+                                 "the step is on meta"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_the_stream_refuses_at_construction_and_at_at(name):
+    """What the counter cannot name raises when the stream is made, and when
+    ``at`` makes one, before any draw."""
+    kw, match = REFUSED[name]
+    base = dict(key=torch.tensor(5, dtype=torch.int64), chains=4, offset=0, step=0, site=0,
+                part=0)
+    with pytest.raises(ValueError, match=match):
+        KeyedStream(**{**base, **kw})
+    if "key" not in kw:
+        with pytest.raises(ValueError, match=match):
+            KeyedStream(**base).at(**kw)
+
+
+@pytest.mark.parametrize("change", [dict(step=9), dict(step=torch.tensor(4)), dict(site=6),
+                                    dict(part=1), dict(chains=2), dict(offset=3),
+                                    dict(chains=2, offset=3, site=1)])
+def test_at_keeps_every_other_field(change):
+    s = _stream(chains=4, offset=1, step=7, site=3).at(part=2)
+    moved = s.at(**change)
+    fields = ("chains", "offset", "step", "site", "part")
+    for f in fields:
+        assert getattr(moved, f) is (change[f] if f in change else getattr(s, f))
+    assert moved.key is s.key and moved.device == s.device
+    _, _, f = _launch(moved, NORMAL, (moved.chains, 2), torch.float32)
+    assert (f["site_word"], f["offset"], f["chains"]) == ((moved.site << 8) | moved.part,
+                                                          moved.offset, moved.chains)
