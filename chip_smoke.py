@@ -30,7 +30,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
    agrees with its plain version on the final positions; print
    the phase times, min ESS, ESS/s, leaps per draw, stage 1's adapted step
    and trajectory length and the K1 launches of each stage, and hold the
-   launch counts to those of the kernel's earlier design (``K1_LAUNCHES_BEFORE``);
+   launch counts to the anchored ones (``K1_LAUNCHES_BEFORE``, on the keyed
+   streams every MCJob draw takes);
 5. run nuts_precond at the same size: the same stage 1, stage 2 whitened
    NUTS(max_doublings=3) (bench.py's settings); check finiteness, R̂,
    that stage 2 launched K1 exactly 7 times per step plus once at init,
@@ -152,9 +153,12 @@ Phases, each of which raises on failure (the script then exits non-zero):
    chains x 500 sweeps and MH with a LogNormal proposal distribution (K2
    draws) on a 100-dim Gamma(2, 1) product at 4096 chains x 200 steps, each
    held bit for bit to this process's run of the same seed without a mesh;
-   the rats and MH runs carry 2048 chains a rank and issue no collective
-   but the run's generator check (``parallel.mesh.COLLECTIVES``: 0 in the
-   sweeps and steps); ``param_sharded_logreg_target`` on
+   the MALA, rats and MH runs carry 2048 chains a rank and issue no
+   collective but the run's generator check (``parallel.mesh.COLLECTIVES``:
+   0 in the sweeps and steps); MALA streamed to csv by MCJob (16 draws of
+   4096 x 100 in chunks of 5) and the rats model's two csv variables, their
+   files written by rank 0 from the gathered chunks and held byte for byte
+   to this process's (``P26_CSV_*``); ``param_sharded_logreg_target`` on
    ``mesh2d(1, 2)`` at 4096 x 100 x 1024 held to K1 on the full X (phase-3
    tolerances) and run under HMC with per-chain leap counts (50 + 100
    steps; acceptance above 0.3, both ranks' ``stats.mean`` and
@@ -178,13 +182,16 @@ Phases, each of which raises on failure (the script then exits non-zero):
    probe built from K2's source); time every mode at the rats shapes and at
    16384 x 100 (ms over 50 launches, host µs and device µs a launch) beside
    torch's own call, its plain version and its bound (the Philox calls,
-   cheap tests and slow tests this run's elements made).
+   cheap tests and slow tests this run's elements made), and the uniforms
+   MCJob draws at 16384 chains (``K2_JOB_SHAPES``: the accept uniform, NUTS's
+   (C, 14) step uniforms), compared bit for bit and timed alike.
 
 The Gibbs paths launch no K1 (their sweep is plain torch ops in both
-packages); the kernels line records their K1 count, 0.  K2 draws every
-Gibbs conditional and every MH proposal distribution: the kernels line
-lists its launches on each such path (phases 9, 11, 23, 24's four examples
-that draw through it, 26), each counted from 0 just before the path's run.  The output layer
+packages); the kernels line records their K1 count, 0.  K2 makes every draw
+of every path (MCJob's momentum, proposals, accept uniforms, jitter, NUTS's
+uniforms and init draws; the Gibbs conditionals): the kernels line lists its
+launches on each path, each counted from 0 just before the path's run and
+required above 0.  The output layer
 adds no kernel: phases 21-22 launch K1 on new paths (``io_stream_mala``,
 ``io_resume_mala``) and phase 23 launches none (``io_gibbs_csv``).
 
@@ -253,21 +260,21 @@ SASS_FMA_PIPE = ("IMAD", "IMUL")
 SASS_ALU_PIPE = ("LOP3", "LOP", "IADD3", "IADD", "SHF", "SHL", "SHR", "LEA", "ISETP", "SEL",
                  "PRMT", "MOV", "IMNMX", "IABS", "PLOP3", "SGXT", "BMSK")
 RHAT_GATE = 1.02  # bench.py's mixing gate
-# K1 launches of the same paths with the kernel's earlier design (both
-# products on the FP32 cores; same seeds, sizes and settings).  Stage 1 is the
-# ChEES warmup that chees_precond and nuts_precond share.  Stage 2 of
-# nuts_precond is held exactly (7 leaves a step); the other counts follow an
-# adapted step size or trajectory length, which a change of the kernel's
-# rounding may move.
-K1_LAUNCHES_BEFORE = {"stage1": 30926, "chees_stage2": 11816, "nuts_looped": 9095, "nuts": 83707}
+# K1 launches of the same paths on the keyed streams every MCJob draw takes
+# (same seeds, sizes and settings; an NVIDIA H100 80GB HBM3 at 700 W, with K1's
+# wgmma design).  Stage 1 is the ChEES warmup that chees_precond and
+# nuts_precond share.  Stage 2 of nuts_precond is held exactly (7 leaves a
+# step); the other counts follow an adapted step size or trajectory length,
+# which a change of the kernel's rounding or of the draws may move.
+K1_LAUNCHES_BEFORE = {"stage1": 23436, "chees_stage2": 11581, "nuts_looped": 9095, "nuts": 83707}
 LAUNCH_ALLOWANCE = 0.03
 # Stage 1 adapts the trajectory length by Adam steps on a noisy ensemble
 # estimate, so its count follows the value+grad's last bits and, far more,
-# the seed.  ``--stage1-sensitivity`` on an NVIDIA H100 80GB HBM3 at 700 W:
-# 29,441 evaluations with K1 and 29,406 with the plain version at seed 42
-# (30,926 with the earlier design: three roundings, 5% apart, adapted
-# trajectory lengths 16.3 and 16.9), 19,532 and 19,357 at seed 43 (trajectory
-# lengths 9.5 and 12.4), 24,346 with K1 at seed 44.
+# the draws.  ``--stage1-sensitivity`` on an NVIDIA H100 80GB HBM3 at 700 W
+# (torch's generator draws): 29,441 evaluations with K1 and 29,406 with the
+# plain version at seed 42 (30,926 with K1's earlier design: three roundings,
+# 5% apart, adapted trajectory lengths 16.3 and 16.9), 19,532 and 19,357 at
+# seed 43 (trajectory lengths 9.5 and 12.4), 24,346 with K1 at seed 44.
 STAGE1_ALLOWANCE = 0.08
 ACCEPT_RANGE = (0.6, 0.95)
 
@@ -327,8 +334,6 @@ IO_GIBBS_CSV = ("alpha_c", "sigma2_c")
 SMOKE_EXAMPLES = ("poisson_mh", "gamma_mh_truncation", "t_slice", "swiss_mala_analytical",
                   "swiss_hmc_analytical", "bivariate_normal_gibbs", "rats_gibbs")
 K1_EXAMPLES = ("swiss_mala_analytical", "swiss_hmc_analytical")
-# the examples whose proposals or conditionals draw through K2
-K2_EXAMPLES = ("poisson_mh", "gamma_mh_truncation", "bivariate_normal_gibbs", "rats_gibbs")
 POISSON_LAM, GAMMA_MOMENTS, BIV_RHO, BIV_RHO_WIDTH = 6.0, (2.0, 2.0), 0.8, 0.05
 # phase 25: examples_torch/multichip_scaling.py at its full width (16384 chains,
 # NUTS(max_doublings=6)), depth cut from 200 + 300 steps to 50 + 100
@@ -341,6 +346,10 @@ P26_SWEEPS = IO_GIBBS_SWEEPS
 P26_HMC_LAMBDA, P26_HMC_BURNIN, P26_HMC_POST = 0.05, 50, 100
 P26_TIMEOUT = 600
 P26_MH_STEPS = 200
+# the two-rank csv check: MALA on the bench target streamed to csv (16 draws of
+# 4096 x 100 in chunks of 5, ~80 MB) and the rats model's IO_GIBBS_CSV variables
+# (200 sweeps), the files held byte for byte to one process's
+P26_CSV_BURNIN, P26_CSV_POST, P26_CSV_CHUNK, P26_CSV_SWEEPS = 24, 16, 5, 200
 # phase 27: K2 (keyed draws) against its plain version at the rats blocks' widest
 # per-chain draw, 4096 chains x 30, and at 16384 x 100; moments of 10^6 draws a point on the grid below;
 # times at the rats shapes (4096 chains x 1 and x 30 elements) and 16384 x 100, with
@@ -353,6 +362,10 @@ K2_RATS_GAMMA_SHAPE, K2_RATS_ALPHAS = (4096, 1), (15.001, 75.001)
 K2_TIME_SHAPES = {"c4096_e1": (4096, 1), "c4096_e30": (4096, 30), "c16384_e100": (16384, 100)}
 K2_TIME_PARAMS = {"uniform": (), "normal": (), "gamma": (15.001,), "poisson": (30.0,),
                   "binomial": (100.0, 0.3)}
+# the uniforms MCJob draws on the main paths at 16384 chains (each also compared bit for
+# bit): the accept uniform, one a chain, and NUTS(max_doublings=3)'s step uniforms, one
+# (C, 2J + 2^J) draw; the momentum's 16384 x 100 normals are c16384_e100 above
+K2_JOB_SHAPES = {"uniform": {"c16384_e1": (16384, 1), "nuts_c16384_e14": (16384, 14)}}
 K2_ALPHAS, K2_LAMBDAS = (1e-3, 0.3, 1.0, 7.5, 1e4), (0.5, 9.9, 10.0, 1e3)
 K2_BINOMIALS = tuple((n, p) for n in (1, 20, 1000) for p in (0.01, 0.5, 0.99))
 # K2 against its plain version on the same key and counters: uniforms bit for bit (the
@@ -579,7 +592,7 @@ def _check_launches(path, got, allowance=LAUNCH_ALLOWANCE):
     want = K1_LAUNCHES_BEFORE[path]
     if abs(got - want) > allowance * want:
         raise RuntimeError(f"{path}: {got} K1 launches, over {allowance:.0%} from the "
-                           f"earlier design's {want}")
+                           f"anchored {want}")
 
 
 def _trace_bits(values, chunk=64):
@@ -624,6 +637,7 @@ def run_main_path(device="cuda", chains=CHAINS, dim=DIM, n_data=N_DATA, burnin=B
     x0 = 0.1 * torch.randn(chains, dim, generator=gen, device=device)
 
     logreg.KERNEL_LAUNCHES = 0
+    _k2_reset()
     reduces0 = COLLECTIVES["all_reduce"]
     t0 = time.perf_counter()
     chain, timings, info = job.run_preconditioned(
@@ -633,7 +647,7 @@ def run_main_path(device="cuda", chains=CHAINS, dim=DIM, n_data=N_DATA, burnin=B
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = logreg.KERNEL_LAUNCHES
+    launches, k2 = logreg.KERNEL_LAUNCHES, _k2_launches()
     reduces = COLLECTIVES["all_reduce"] - reduces0
 
     values, chol = chain.value, info["chol"]
@@ -658,6 +672,8 @@ def run_main_path(device="cuda", chains=CHAINS, dim=DIM, n_data=N_DATA, burnin=B
         "k1_launches_stage2": launches - stage2_start[0],
         "k1_max_abs_err_on_path": _k1_error(
             (chain.final_state.position @ chol.T).contiguous(), X, y),
+        "k2_launches": k2,
+        "k2_launches_per_step": k2 / (2 * burnin + post + 1),
     }
     x_end = (chain.final_state.position @ chol.T).contiguous()
     if mesh is not None:
@@ -739,13 +755,14 @@ def run_nuts_precond(chees_summary, device="cuda", chains=CHAINS, dim=DIM,
     x0 = 0.1 * torch.randn(chains, dim, generator=gen, device=device)
 
     logreg.KERNEL_LAUNCHES = 0
+    _k2_reset()
     chain, timings, info = job.run_preconditioned(
         gen, x0, stage2_replace=dict(sampler=nuts3,
                                      traj_adaptation=False, diagnostics=("accept", "na")),
         back_transform=False,
     )
     torch.cuda.synchronize()
-    launches = logreg.KERNEL_LAUNCHES
+    launches, k2 = logreg.KERNEL_LAUNCHES, _k2_launches()
     stage2 = launches - stage2_start[0]
 
     values, chol = chain.value, info["chol"]
@@ -775,6 +792,7 @@ def run_nuts_precond(chees_summary, device="cuda", chains=CHAINS, dim=DIM,
         "k1_launches_stage1": stage2_start[0],
         "k1_launches_stage2": stage2,
         "k1_max_abs_err_on_path": k1_err,
+        "k2_launches": k2,
         "max_mean_z_vs_chees": z,
     }
     print(f"# nuts_precond {chains}x{dim}x{n_data}: {json.dumps(res)}", flush=True)
@@ -828,7 +846,8 @@ def profile_nuts(wjob, state, gen, out_dir, window=200, warm=20):
 
     buffers = ({}, {})
     i0 = wjob.mcrange.burnin + warm
-    state = wjob._loop(state, gen, wjob.mcrange.burnin, i0, False, buffers)
+    stream = wjob._run_stream(gen, state.position.device)
+    state = wjob._loop(state, stream, wjob.mcrange.burnin, i0, False, buffers)
     torch.cuda.synchronize()
     leap0, draws0 = nuts_mod.leapfrog_step, kt.NUTS.draws
 
@@ -842,16 +861,18 @@ def profile_nuts(wjob, state, gen, out_dir, window=200, warm=20):
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     nuts_mod.leapfrog_step, kt.NUTS.draws = leap, draws
+    _k2_reset()
     try:
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
-            state = wjob._loop(state, gen, i0, i0 + window, False, buffers)
+            state = wjob._loop(state, stream, i0, i0 + window, False, buffers)
             torch.cuda.synchronize()
             wall_profiled = 1e3 * (time.perf_counter() - t0)
     finally:
         nuts_mod.leapfrog_step, kt.NUTS.draws = leap0, draws0
+    k2_launched = _k2_launches()
     t0 = time.perf_counter()
-    wjob._loop(state, gen, i0 + window, i0 + 2 * window, False, buffers)
+    wjob._loop(state, stream, i0 + window, i0 + 2 * window, False, buffers)
     torch.cuda.synchronize()
     wall = 1e3 * (time.perf_counter() - t0)
 
@@ -888,6 +909,9 @@ def profile_nuts(wjob, state, gen, out_dir, window=200, warm=20):
         "gemm_ms": gemm,
         "gemm_kernels": len(gemms),
         "k1_in_leapfrog_range": k1_in_range,
+        # K2's kernels the profiler recorded against the launches the wrapper counted
+        "k2_kernels": sum("keyed_draws" in e.name for e in kernels),
+        "k2_launches": k2_launched,
         "leapfrog_elementwise_ms": leap_elementwise,
         "draws_ms": draws_ms,
         "bookkeeping_ms": bookkeeping,
@@ -916,22 +940,27 @@ def profile_chees(wjob, state, gen, out_dir, window=200, warm=20):
     Writes profile_chees.json and profile_chees.txt under ``out_dir``."""
     buffers = ({}, {})
     i0 = wjob.mcrange.burnin + warm
-    state = wjob._loop(state, gen, wjob.mcrange.burnin, i0, False, buffers)
+    stream = wjob._run_stream(gen, state.position.device)
+    state = wjob._loop(state, stream, wjob.mcrange.burnin, i0, False, buffers)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    _k2_reset()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        state = wjob._loop(state, gen, i0, i0 + window, False, buffers)
+        state = wjob._loop(state, stream, i0, i0 + window, False, buffers)
         torch.cuda.synchronize()
         wall_profiled = 1e3 * (time.perf_counter() - t0)
+    k2_launched = _k2_launches()
     t0 = time.perf_counter()
-    wjob._loop(state, gen, i0 + window, i0 + 2 * window, False, buffers)
+    wjob._loop(state, stream, i0 + window, i0 + 2 * window, False, buffers)
     torch.cuda.synchronize()
     wall = 1e3 * (time.perf_counter() - t0)
     kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
     busy = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
     k1 = [e for e in kernels if "logreg" in e.name]
     k1_ms = sum(e.time_range.elapsed_us() for e in k1) / 1e3
+    k2 = [e for e in kernels if "keyed_draws" in e.name]
+    k2_ms = sum(e.time_range.elapsed_us() for e in k2) / 1e3
     gemm = sum(e.time_range.elapsed_us() for e in kernels
                if any(s in e.name.lower() for s in ("gemm", "cutlass", "xmma"))) / 1e3
     res = {
@@ -946,6 +975,11 @@ def profile_chees(wjob, state, gen, out_dir, window=200, warm=20):
         "k1_kernels": len(k1),
         "k1_ms_each": k1_ms / max(len(k1), 1),
         "k1_share_of_busy": k1_ms / busy,
+        # K2's kernels the profiler recorded against the launches the wrapper counted
+        "k2_kernels": len(k2),
+        "k2_launches": k2_launched,
+        "k2_ms_per_step": k2_ms / window,
+        "k2_share_of_busy": k2_ms / busy,
         "gemm_share_of_busy": gemm / busy,
         "eps_mean": float(state.tune.step.mean()),
     }
@@ -1022,9 +1056,10 @@ def run_nuts_looped(wjob, state, chol, gen, na_static, data, chains=SMALL_CHAINS
     )
     y0 = state.position[:chains].contiguous()
     logreg.KERNEL_LAUNCHES = 0
+    _k2_reset()
     chain, timings = job.run_phased(gen, y0)
     torch.cuda.synchronize()
-    launches = logreg.KERNEL_LAUNCHES
+    launches, k2 = logreg.KERNEL_LAUNCHES, _k2_launches()
 
     values = chain.value
     if not bool(torch.isfinite(values).all()):
@@ -1040,6 +1075,7 @@ def run_nuts_looped(wjob, state, chol, gen, na_static, data, chains=SMALL_CHAINS
         "eps_final": float(chain.final_state.tune.step.mean()),
         "k1_launches": launches,
         "k1_max_abs_err_on_path": _k1_error((end.position @ chol.T).contiguous(), *data),
+        "k2_launches": k2,
         "trees_stopped_inside": check_trees_agree(end, job.target, gen, 3),
         "ms_per_step_looped": _ms_per_step(looped, end, job.target, gen),
         "ms_per_step_static": _ms_per_step(wjob.sampler, end, job.target, gen),
@@ -1075,9 +1111,10 @@ def run_nuts_raw(device="cuda", chains=SMALL_CHAINS, dim=DIM, n_data=N_DATA,
     gen = torch.Generator(device=device).manual_seed(42)
     x0 = 0.1 * torch.randn(chains, dim, generator=gen, device=device)
     logreg.KERNEL_LAUNCHES = 0
+    _k2_reset()
     chain, timings = job.run_phased(gen, x0)
     torch.cuda.synchronize()
-    launches = logreg.KERNEL_LAUNCHES
+    launches, k2 = logreg.KERNEL_LAUNCHES, _k2_launches()
 
     values = chain.value
     if not bool(torch.isfinite(values).all()):
@@ -1095,6 +1132,7 @@ def run_nuts_raw(device="cuda", chains=SMALL_CHAINS, dim=DIM, n_data=N_DATA,
         "eps_final": float(chain.final_state.tune.step.mean()),
         "k1_launches": launches,
         "k1_max_abs_err_on_path": _k1_error(chain.final_state.position.contiguous(), X, y),
+        "k2_launches": k2,
         "trees_stopped_inside": check_trees_agree(chain.final_state, target, gen, 5),
     }
     print(f"# nuts {chains}x{dim}x{n_data}: {json.dumps(res)}", flush=True)
@@ -1435,9 +1473,11 @@ def run_zoo_sampler(name, target, sampler, x0, ref_summary, *, burnin, post, thi
     )
     gen = torch.Generator(device=x0.device).manual_seed(7)
     logreg.KERNEL_LAUNCHES = 0
+    _k2_reset()
     slice_sampler.HOST_READS = 0
     chain, timings = job.run_phased(gen, x0)
     launches, counted_reads = logreg.KERNEL_LAUNCHES, slice_sampler.HOST_READS
+    k2 = _k2_launches()
 
     values = chain.value
     if not bool(torch.isfinite(values).all()):
@@ -1465,6 +1505,7 @@ def run_zoo_sampler(name, target, sampler, x0, ref_summary, *, burnin, post, thi
         "sampling_seconds": timings["sampling_seconds"],
         "ms_per_step": ms_per_step,
         "k1_launches": launches,
+        "k2_launches": k2,
         "host_reads_per_step": n_reads / probe_steps,
         "host_read_sites": read_sites,
         # probe_steps further steps under torch.profiler; the idle share sets their
@@ -1621,7 +1662,9 @@ def run_zoo_ars(device="cuda", chains=ZOO_CHAINS, dim=DIM, steps=ARS_STEPS):
                    monitor=("value", "logtarget"), diagnostics=("accept", "accept_stat", "weight"))
     gen = torch.Generator(device=device).manual_seed(7)
     logreg.KERNEL_LAUNCHES = 0
+    _k2_reset()
     chain, timings = job.run_phased(gen, torch.zeros(chains, dim, device=device))
+    k2 = _k2_launches()
     accept = chain["accept"].to(torch.float64)
     stat = chain["accept_stat"].to(torch.float64)
     n = accept.numel()
@@ -1631,6 +1674,7 @@ def run_zoo_ars(device="cuda", chains=ZOO_CHAINS, dim=DIM, steps=ARS_STEPS):
         "chains": chains, "steps": steps,
         "ms_per_step": 1e3 * timings["sampling_seconds"] / steps,
         "k1_launches": logreg.KERNEL_LAUNCHES,
+        "k2_launches": k2,
         "acceptance": float(accept.mean()),
         "mean_accept_stat": float(stat.mean()),
         "accept_minus_stat_in_se": float((accept.mean() - stat.mean()).abs()) / se,
@@ -1675,8 +1719,10 @@ def check_monitor_slots(device="cuda", chains=64, draws=50):
                    n_chains=chains, monitor=MONITOR_SLOTS)
     gen = torch.Generator(device=device).manual_seed(3)
     logreg.KERNEL_LAUNCHES = 0
+    _k2_reset()
     chain = job.run(gen, 0.1 * torch.randn(chains, d, generator=gen, device=device))
     _sync(device)
+    k2 = _k2_launches()
     for f in MONITOR_SLOTS:
         rank = (0 if f.startswith("log") else 1 if f.startswith("grad") or f == "value"
                 else 2 if f.startswith("tensor") else 3)
@@ -1692,6 +1738,7 @@ def check_monitor_slots(device="cuda", chains=64, draws=50):
         errs[pre + "target"] = float((whole - parts).abs().max())
         torch.testing.assert_close(whole, parts, rtol=1e-4, atol=tol)
     res = {"chains": chains, "draws": draws, "k1_launches": logreg.KERNEL_LAUNCHES,
+           "k2_launches": k2,
            "acceptance": float(chain["accept"].to(torch.float32).mean()),
            "max_abs_err_target_minus_parts": errs}
     print(f"# 13 monitor slots on swiss {chains}x{d}: {json.dumps(res)}", flush=True)
@@ -1789,10 +1836,11 @@ def run_io_stream(x_end, tmp, device="cuda", chains=ZOO_CHAINS, dim=DIM, n_data=
                        stream_chunk=chunk)
     spent = {"write": 0.0, "format": 0.0, "take": 0.0}
     logreg.KERNEL_LAUNCHES = 0
+    _k2_reset()
     with _timed_writer(spent):
         chain, reads, csv_secs = _counted(
             lambda: job.run(torch.Generator(device=device).manual_seed(IO_SEED), x0))
-    launches = logreg.KERNEL_LAUNCHES
+    launches, k2 = logreg.KERNEL_LAUNCHES, _k2_launches()
 
     twin_job = _mala_io_job(target, chains, n_steps, burnin)
     gen = torch.Generator(device=device).manual_seed(IO_SEED)
@@ -1875,6 +1923,7 @@ def run_io_stream(x_end, tmp, device="cuda", chains=ZOO_CHAINS, dim=DIM, n_data=
         "acceptance": float(twin["accept"].to(torch.float32).mean()),
         "k1_launches": launches,
         "k1_max_abs_err_on_path": _k1_error(chain.final_state.position.contiguous(), X, y),
+        "k2_launches": k2,
     }
     print(f"# io_stream_mala {chains}x{dim}x{n_data}: {json.dumps(res)}", flush=True)
     if failures:
@@ -1906,10 +1955,11 @@ def run_io_resume(job, twin, gen, data, tmp, device="cuda"):
         failures.append("the checkpoint did not load into fresh card tensors and generator")
 
     logreg.KERNEL_LAUNCHES = 0
+    _k2_reset()
     live = job.resume(gen, twin)
     again = job.resume(tree["generator"], dataclasses.replace(twin, final_state=state))
     torch.cuda.synchronize()
-    launches = logreg.KERNEL_LAUNCHES
+    launches, k2 = logreg.KERNEL_LAUNCHES, _k2_launches()
     for k in ("value", "logtarget", "accept"):
         if not torch.equal(live[k], again[k]):
             failures.append(f"the resumed {k} traces differ")
@@ -1924,6 +1974,7 @@ def run_io_resume(job, twin, gen, data, tmp, device="cuda"):
         "resume_acceptance": float(again["accept"].to(torch.float32).mean()),
         "k1_launches": launches,
         "k1_max_abs_err_on_path": _k1_error(again.final_state.position.contiguous(), *data),
+        "k2_launches": k2,
     }
     print(f"# io_resume_mala: {json.dumps(res)}", flush=True)
     if failures:
@@ -2125,15 +2176,16 @@ def check_meshed_no_host_read(wjob, state, gen, n_steps=5):
     from klara_tpu_torch.parallel.mesh import COLLECTIVES, chain_context
 
     job = dataclasses.replace(wjob, sampler=kt.NUTS(max_doublings=3), traj_adaptation=False)
+    stream = job._run_stream(gen, state.position.device)
     with chain_context(job._block):
-        nuts = job._init_states(gen, state.position)
+        nuts = job._init_states(stream, state.position)
     torch.cuda.synchronize()
     before = COLLECTIVES["all_reduce"]
     mode = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode("error")
     try:
         with chain_context(job._block):
-            nuts = job._loop(nuts, gen, 0, n_steps, True)
+            nuts = job._loop(nuts, stream, 0, n_steps, True)
     finally:
         torch.cuda.set_sync_debug_mode(mode)
     torch.cuda.synchronize()
@@ -2194,10 +2246,11 @@ def run_meshed_main_path(phase4, phase4_fingerprint, device="cuda", **sizes):
         res["all_reduce_ms"] = _all_reduce_ms(mesh)
         res["torch"] = f"{torch.__version__} (CUDA {torch.version.cuda})"
         logreg.KERNEL_LAUNCHES = 0
+        _k2_reset()
         scaling = multichip_scaling.main(n_chains=sizes.get("chains", CHAINS),
                                          n_steps=MULTICHIP_BURNIN + MULTICHIP_POST,
                                          burnin=MULTICHIP_BURNIN, device=device)
-        scaling["k1_launches"] = logreg.KERNEL_LAUNCHES
+        scaling["k1_launches"], scaling["k2_launches"] = logreg.KERNEL_LAUNCHES, _k2_launches()
         res["multichip_scaling"] = scaling
     finally:
         dist.destroy_process_group()
@@ -2221,10 +2274,12 @@ def _p26_mala(mesh, device="cuda"):
     gen = torch.Generator(device=device).manual_seed(26)
     x0 = 0.1 * torch.randn(P26_CHAINS, DIM, generator=gen, device=device)
     logreg.KERNEL_LAUNCHES = 0
-    chain = job.run(gen, x0)
+    _k2_reset()
+    chain, collectives = _collectives_of(lambda: job.run(gen, x0))
     bits = chain.value.view(torch.int32).sum(-1, dtype=torch.int64)
     return {"bits": bits.cpu(), "position": chain.final_state.position.cpu(),
-            "k1_launches": logreg.KERNEL_LAUNCHES,
+            "carried": chain.final_state.position.shape[0], "collectives": collectives,
+            "k1_launches": logreg.KERNEL_LAUNCHES, "k2_launches": _k2_launches(),
             "acceptance": float(kt.stats.acceptance(chain))}
 
 
@@ -2282,6 +2337,44 @@ def _p26_mh(mesh, device="cuda"):
             "k2_launches": _k2_launches(), "acceptance": float(kt.stats.acceptance(chain))}
 
 
+def _file_digests(root):
+    """{path under ``root``: sha256 of the file's bytes} of every file."""
+    import hashlib
+
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            with open(os.path.join(d, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(d, f), root)] = hashlib.sha256(
+                    fh.read()).hexdigest()
+    return out
+
+
+def _p26_csv(mesh, root, device="cuda"):
+    """csv output at ``root``: MALA on the bench target streamed by MCJob
+    and the rats GibbsJob's ``IO_GIBBS_CSV`` variables; on a mesh the first
+    rank alone writes.  The files' digests where this process wrote them
+    (None elsewhere)."""
+    import klara_tpu_torch as kt
+    from klara_tpu_torch.models.examples import rats_gibbs_model, synthetic_logistic_regression
+    from klara_tpu_torch.parallel.mesh import writes_output
+
+    target, _, _ = synthetic_logistic_regression(dim=DIM, n_data=N_DATA, device=device)
+    job = kt.MCJob(target, kt.MALA(driftstep=P26_MALA_STEP),
+                   kt.MCRange(n_steps=P26_CSV_BURNIN + P26_CSV_POST, burnin=P26_CSV_BURNIN),
+                   n_chains=P26_CHAINS, destination="csv", filepath=os.path.join(root, "mala"),
+                   stream_chunk=P26_CSV_CHUNK, mesh=mesh)
+    gen = torch.Generator(device=device).manual_seed(264)
+    job.run(gen, 0.1 * torch.randn(P26_CHAINS, DIM, generator=gen, device=device))
+    model, v0 = rats_gibbs_model(device=device)
+    gjob = kt.GibbsJob(model, {}, kt.MCRange(n_steps=P26_CSV_SWEEPS, burnin=IO_GIBBS_BURNIN),
+                       n_chains=P26_CHAINS, monitor=GIBBS_MONITOR, device=device, mesh=mesh,
+                       outopts={k: {"destination": "csv", "filepath": os.path.join(root, k)}
+                                for k in IO_GIBBS_CSV}, stream_chunk=IO_GIBBS_CHUNK)
+    gjob.run(torch.Generator(device=device).manual_seed(265), v0)
+    return {"files": _file_digests(root) if writes_output(mesh) else None}
+
+
 def _p26_param(device="cuda"):
     """The param-sharded target on mesh2d(1, 2): value and gradient against
     K1 on the full X at P26_CHAINS positions, and an HMC job with per-chain
@@ -2310,14 +2403,16 @@ def _p26_param(device="cuda"):
                    tuner=kt.DualAveragingTuner(0.8, P26_HMC_BURNIN), n_chains=P26_CHAINS,
                    monitor=("value",), diagnostics=("accept", "nleaps"), mesh=mesh)
     logreg.KERNEL_LAUNCHES = 0
+    _k2_reset()
     chain = job.run(torch.Generator(device=device).manual_seed(262),
                     torch.zeros(DIM, device=device))
+    k2 = _k2_launches()
     leaps = chain["nleaps"]
     return {"max_abs_err_vs_k1": err, "finite": bool(torch.isfinite(chain.value).all()),
             "mean": kt.stats.mean(chain).cpu(), "acceptance": float(kt.stats.acceptance(chain)),
             "leaps_per_step": float(leaps.to(torch.float64).mean()),
             "steps_with_mixed_leaps": int((leaps.max(1).values != leaps.min(1).values).sum()),
-            "k1_launches": logreg.KERNEL_LAUNCHES}
+            "k1_launches": logreg.KERNEL_LAUNCHES, "k2_launches": k2}
 
 
 def rank_worker(rank, init_file, out_dir, device="cuda:0"):
@@ -2335,6 +2430,8 @@ def rank_worker(rank, init_file, out_dir, device="cuda:0"):
         for name, fn in (("mala", lambda: _p26_mala(mesh, device)),
                          ("rats", lambda: _p26_rats(mesh, device)),
                          ("mh", lambda: _p26_mh(mesh, device)),
+                         ("csv", lambda: _p26_csv(mesh, os.path.join(out_dir, "csv_meshed"),
+                                                  device)),
                          ("param", lambda: _p26_param(device))):
             t0 = time.perf_counter()
             out[name] = fn()
@@ -2352,10 +2449,11 @@ def run_two_ranks_on_one_card(device="cuda"):
     """Phase 26: two processes on cuda:0 joined by gloo (NCCL refuses two
     ranks on one card), spawned here and stopped before the phase ends;
     their MALA, rats and MH-proposal runs held to this process's runs
-    without a mesh bit for bit, the rats and MH runs to each rank's block of
-    2048 chains and to no collective but the run's generator check, the
-    param-sharded target to K1, and K1 timed at the rank's 8192 chains of
-    the 16384-chain main path."""
+    without a mesh bit for bit, the MALA, rats and MH runs to each rank's
+    block of 2048 chains and to no collective but the run's generator
+    check, their csv files (written by rank 0 from the gathered chunks) to
+    this process's byte for byte, the param-sharded target to K1, and K1
+    timed at the rank's 8192 chains of the 16384-chain main path."""
     t_phase = time.perf_counter()
     ref_mala, ref_rats = _p26_mala(None, device), _p26_rats(None, device)
     ref_mh = _p26_mh(None, device)
@@ -2363,6 +2461,7 @@ def run_two_ranks_on_one_card(device="cuda"):
     tmp = tempfile.mkdtemp(prefix="klara_p26_")
     procs = []
     try:
+        ref_csv = _p26_csv(None, os.path.join(tmp, "csv_single"), device)
         init = os.path.join(tmp, "pg")
         t0 = time.perf_counter()
         procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--rank-worker",
@@ -2400,14 +2499,22 @@ def run_two_ranks_on_one_card(device="cuda"):
     # check (one all-gather of one digest a rank): the sweeps and steps issue none
     check_only = {"all_reduce": 0, "all_gather": 1, "gathered_elements": 2}
     for r, p in enumerate(parts):
-        if p["rats"]["carried"] != [P26_CHAINS // 2] or p["mh"]["carried"] != P26_CHAINS // 2:
+        if (p["rats"]["carried"] != [P26_CHAINS // 2] or p["mh"]["carried"] != P26_CHAINS // 2
+                or p["mala"]["carried"] != P26_CHAINS // 2):
             raise RuntimeError(f"rank {r} carried {p['rats']['carried']} rats chains and "
-                               f"{p['mh']['carried']} MH chains, not {P26_CHAINS // 2}")
-        for run in ("rats", "mh"):
+                               f"{p['mh']['carried']} MH and {p['mala']['carried']} MALA "
+                               f"chains, not {P26_CHAINS // 2}")
+        for run in ("mala", "rats", "mh"):
             if p[run]["collectives"] != check_only:
                 raise RuntimeError(f"rank {r}'s {run} run issued {p[run]['collectives']}")
             if p[run]["k2_launches"] <= 0:
                 raise RuntimeError(f"rank {r}'s {run} run launched no K2 kernel")
+    if parts[1]["csv"]["files"] is not None or not ref_csv["files"]:
+        raise RuntimeError("rank 1 wrote csv files, or the one process wrote none")
+    if parts[0]["csv"]["files"] != ref_csv["files"]:
+        differ = sorted(k for k in set(ref_csv["files"]) | set(parts[0]["csv"]["files"])
+                        if ref_csv["files"].get(k) != parts[0]["csv"]["files"].get(k))
+        raise RuntimeError(f"the two ranks' csv files differ from one process's: {differ}")
     a, b = parts[0]["param"], parts[1]["param"]
     if not (a["finite"] and a["acceptance"] > 0.3 and a["steps_with_mixed_leaps"] > 0):
         raise RuntimeError(f"param-sharded HMC: {a}")
@@ -2418,9 +2525,12 @@ def run_two_ranks_on_one_card(device="cuda"):
     res = {
         "ranks_seconds": ranks_seconds,
         "seconds_by_run": {k: [p[k]["seconds"] for p in parts]
-                           for k in ("mala", "rats", "mh", "param")},
+                           for k in ("mala", "rats", "mh", "csv", "param")},
         "mala_k1_launches_per_rank": [p["mala"]["k1_launches"] for p in parts],
         "mala_k1_launches_one_process": ref_mala["k1_launches"],
+        "mala_k2_launches_per_rank": [p["mala"]["k2_launches"] for p in parts],
+        "mala_k2_launches_one_process": ref_mala["k2_launches"],
+        "csv_files_byte_identical": sorted(ref_csv["files"]),
         "mala_acceptance": ref_mala["acceptance"],
         "rats_k1_launches_per_rank": [p["rats"]["k1_launches"] for p in parts],
         "rats_k2_launches_per_rank": [p["rats"]["k2_launches"] for p in parts],
@@ -2924,7 +3034,7 @@ def _k2_times(stream, gen, sass):
     for mode, params in K2_TIME_PARAMS.items():
         out[mode] = {}
         m = keyed.MODES[mode]
-        for label, shape in K2_TIME_SHAPES.items():
+        for label, shape in {**K2_TIME_SHAPES, **K2_JOB_SHAPES.get(mode, {})}.items():
             s = stream.at(chains=shape[0])
             _, calls = keyed.draws(s, m, shape, torch.float32, *params, want_calls=True)
             n_calls = _k2_calls_made(mode, calls, params)
@@ -3075,6 +3185,9 @@ def run_keyed_draws(device="cuda"):
             if K2_TIME_PARAMS[mode]:
                 compared.append(_k2_compare(stream.at(chains=big[0], site=50 + m), mode, dtype,
                                             *K2_TIME_PARAMS[mode], shape=big))
+        for j, shape in enumerate(K2_JOB_SHAPES["uniform"].values()):
+            compared.append(_k2_compare(stream.at(chains=shape[0], site=60 + j), "uniform",
+                                        dtype, shape=shape))
     compared += rats
     worst_z = _k2_moments(stream.at(site=20))
     kernels = _k2_kernels()
@@ -3235,12 +3348,22 @@ def main():
                    "io_resume_mala": io_resume["k1_max_abs_err_on_path"],
                    **{f"ex_{k}": examples[k]["k1_max_abs_err_on_path"] for k in K1_EXAMPLES},
                    "chees_precond_mesh1": meshed["k1_max_abs_err_on_path"]}
-    # K2 draws the Gibbs conditionals and the MH proposal distributions
-    k2_by_path = {"gibbs_rats": gibbs["k2_launches"], "gibbs_rats_nested": nested["k2_launches"],
+    # K2 makes every draw of every path: MCJob's (momentum, proposals, accept
+    # uniforms, jitter, NUTS's uniforms, the init draws), the Gibbs conditionals
+    k2_by_path = {"chees_precond": chees["k2_launches"], "nuts_precond": nuts["k2_launches"],
+                  "nuts_looped": looped["k2_launches"], "nuts": raw["k2_launches"],
+                  "gibbs_rats": gibbs["k2_launches"], "gibbs_rats_nested": nested["k2_launches"],
+                  **{f"zoo_{k}": v["k2_launches"] for k, v in zoo.items()},
+                  "zoo_ars": ars["k2_launches"], "monitor_slots": slots["k2_launches"],
+                  "io_stream_mala": io_stream["k2_launches"],
+                  "io_resume_mala": io_resume["k2_launches"],
                   "io_gibbs_csv": io_gibbs["k2_launches"],
-                  **{f"ex_{k}": examples[k]["k2_launches"] for k in K2_EXAMPLES},
-                  **{f"{run}_two_ranks_rank{r}": n for run in ("rats", "mh")
-                     for r, n in enumerate(two_ranks[f"{run}_k2_launches_per_rank"])}}
+                  **{f"ex_{k}": v["k2_launches"] for k, v in examples.items()},
+                  "chees_precond_mesh1": meshed["k2_launches"],
+                  "multichip_scaling_mesh1": meshed["multichip_scaling"]["k2_launches"],
+                  **{f"{run}_two_ranks_rank{r}": n for run in ("mala", "rats", "mh")
+                     for r, n in enumerate(two_ranks[f"{run}_k2_launches_per_rank"])},
+                  "param_sharded_hmc": two_ranks["param"]["k2_launches"]}
     for path, n in k2_by_path.items():
         if n <= 0:
             raise RuntimeError(f"the {path} path launched no K2 kernel")
@@ -3289,11 +3412,12 @@ def main():
         "launches": sum(k2_by_path.values()),
         "launches_by_path": k2_by_path,
         "launches_by_mode_gibbs_rats": gibbs["k2_launches_by_mode"],
+        "launches_per_step_chees_precond": chees["k2_launches_per_step"],
         "max_abs_err": keyed_draws["max_abs_err"],
         "max_normal_ulps": keyed_draws["max_normal_ulps"],
         "max_other_attempt_share": keyed_draws["max_other_attempt_share"],
-        # the main path's launch: a normal draw at the rats alpha/beta blocks' shape
-        **{k: keyed_draws["times"]["normal"]["c4096_e30"][k]
+        # the main path's largest launch: chees_precond's momentum, 16384 x 100 normals
+        **{k: keyed_draws["times"]["normal"]["c16384_e100"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "by_mode": keyed_draws["times"],
         "kernels_by_mode": keyed_draws["kernels"],

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from klara_tpu_torch.io.csvio import _write_manifest, format_rows, to_numpy
+from klara_tpu_torch.parallel.mesh import gather_to_first
 
 
 class DrawRing:
@@ -42,13 +43,19 @@ class DrawRing:
             buf[self.count].copy_(val)
         self.count += 1
 
-    def take(self):
+    def take(self, block=None):
         """(count, {field: host tensor of its first ``count`` rows}) and an
         empty ring.  A CPU ring hands out views of itself, valid until the
-        next ``save``."""
+        next ``save``.  With a split chains ``block`` (``parallel.mesh``)
+        the rows of every rank of its group are gathered along the chains
+        axis to the group's first rank, and the others get (count, None)."""
         n, self.count = self.count, 0
         if n == 0:
             return 0, {}
+        if block is not None and block.split:
+            rows = {name: gather_to_first(buf[:n], block, dim=1)
+                    for name, buf in self.bufs.items()}
+            return n, (None if block.rank else {k: v.cpu() for k, v in rows.items()})
         out, stream = {}, None
         for name, buf in self.bufs.items():
             if buf.device.type == "cpu":

@@ -27,15 +27,21 @@ conditional, and every ``reset_from_prior`` start, draws from the run's
 keyed stream (``ops.keyed.KeyedStream``, kernel K2 on the card) at counter
 (sweep, block): the counterpart of the JAX package's
 ``fold_in(fold_in(chain_key, sweep), block)``.  The stream's key is drawn
-once per ``run`` or ``resume`` from the generator; nested samplers draw
-from the generator.
+once per ``run`` or ``resume`` from the generator.  A nested block's
+sampler draws from the same stream at step = sweep, its k-th step of a
+sweep in a window of sites of its own (``ops.keyed``: the nested blocks'
+windows lie in ``[NESTED_SITES, JOB_SITES)``, one per nested step, each as
+wide as the sampler's ``keyed_sites``); the hoisted step-size search draws
+its momentum at step 0 in the block's first window.
 
 Sweeps run in a Python loop.  A variable with ``'csv'`` outopts streams to
 its own directory: its saved draws gather in a ring of ``stream_chunk`` rows
 on the device, and each chunk of sweeps that saved a draw reaches the host
-in one copy per csv variable and one host read.  The conjugate sweep reads
-nothing back from the device; a nested HMC/NUTS block with dynamic leap
-counts reads its batch maximum once per nested step.  Nested blocks re-initialise their sampler
+in one copy per csv variable and one host read; on a mesh each chunk is
+gathered to the first rank of the chains group, and the mesh's first rank
+alone writes.  The conjugate sweep reads nothing back from the device; a
+nested HMC/NUTS block with dynamic leap counts reads its batch maximum once
+per nested step.  Nested blocks re-initialise their sampler
 every sweep, from the current value or a fresh prior draw
 (``reset_from_prior``), and tune per chain during their ``burnin``; HMC/NUTS
 blocks under dual averaging take their initial ε from one step-size search
@@ -45,9 +51,9 @@ With ``mesh`` the chains split over the mesh dimension ``chains_axis`` as in
 ``MCJob``, and the traces equal the one-process run's.  Each rank carries
 only its block of the chains: a keyed draw names a chain by its global
 index, so the rank draws exactly its own chains and the conjugate sweep
-issues no collective.  Nested blocks follow ``parallel.mesh``'s draw rule
-on the rank's block; a nested block's batch-max leap count is the rank's
-own (the loop is masked per chain and runs no collective).  ``v0``'s
+issues no collective, nor do nested blocks: their keyed draws name their
+chains alike, and a nested block's batch-max leap count is the rank's own
+(the loop is masked per chain and runs no collective).  ``v0``'s
 carried values hold no chains axis; ``resume`` takes final values of the
 global chains (a reloaded checkpoint, or a one-process run: each rank cuts
 its block once) or of this rank's (``parallel.mesh.take_block``, which
@@ -68,13 +74,13 @@ from klara_tpu_torch.distributions.core import draw_per_chain
 from klara_tpu_torch.io.stream import DrawRing, StreamingWriter
 from klara_tpu_torch.jobs.range import MCRange
 from klara_tpu_torch.models.graph import Data, GenericModel, GibbsParameter, Transformation
-from klara_tpu_torch.ops.keyed import KeyedStream, raise_on_overflow
+from klara_tpu_torch.ops.keyed import JOB_SITES, NESTED_SITES, KeyedStream, raise_on_overflow
 from klara_tpu_torch.parallel.mesh import (
     chain_block,
     chain_context,
     check_generators,
-    no_csv_across_processes,
     take_block,
+    writes_output,
 )
 from klara_tpu_torch.samplers.base import Sampler
 from klara_tpu_torch.samplers.hamiltonian import find_reasonable_step_size
@@ -207,6 +213,9 @@ class GibbsJob:
         for key in self.sweep:
             if key not in self.model:
                 raise ValueError(f"sweep references unknown variable {key!r}")
+        if len(self._dependents) > NESTED_SITES:
+            raise ValueError(f"{len(self._dependents)} blocks: the keyed draws name at most "
+                             f"{NESTED_SITES}")
         for key, spec in self.sweep.items():
             if spec.reset_from_prior and self.model[key].setprior is None:
                 raise ValueError(
@@ -233,8 +242,6 @@ class GibbsJob:
         self._csv_keys = [k for k in self.monitor if self._opts[k]["destination"] == "csv"]
         self._block = chain_block(self.mesh, self.chains_axis, self.n_chains)
         self._local_chains = self.n_chains if self._block is None else self._block.local
-        if self._csv_keys and self.mesh is not None:
-            no_csv_across_processes()
         self._writers: Dict[str, StreamingWriter] = {}
         self._ring = None
 
@@ -249,9 +256,26 @@ class GibbsJob:
             and isinstance(spec.tuner, DualAveragingTuner)
         )
 
-    def _hoist_step_sizes(self, values: Dict[str, Any], generator):
+    def _nested_window(self, key, values) -> tuple:
+        """(base, width) of nested block ``key``'s windows: its step k of a
+        sweep draws at sites [base + k·width, base + (k+1)·width), its init
+        in step 0's.  The nested blocks' windows follow each other from
+        ``NESTED_SITES`` in the order of their keys."""
+        base = NESTED_SITES
+        for k, spec in sorted(self.sweep.items()):
+            width = spec.sampler.keyed_sites(values[k])
+            if k == key:
+                if base + max(1, spec.n_steps) * width > JOB_SITES:
+                    raise ValueError("the nested blocks' draws need more sites than "
+                                     f"[{NESTED_SITES}, {JOB_SITES}) holds")
+                return base, width
+            base += max(1, spec.n_steps) * width
+        raise KeyError(key)
+
+    def _hoist_step_sizes(self, values: Dict[str, Any], stream):
         """Per-chain (C,) step sizes for nested blocks, searched once per
-        run against the initial conditionals and reused by every sweep."""
+        run against the initial conditionals and reused by every sweep; the
+        search's momentum at step 0 in the block's first window."""
         out = {}
         for hk, spec in sorted(self.sweep.items()):
             if not self._needs_step_hoist(spec):
@@ -260,22 +284,28 @@ class GibbsJob:
             target = Target(
                 logdensity_fn=lambda x, _v=var, _f=frozen: _v.conditional_logdensity(x, _f)
             )
-            out[hk] = find_reasonable_step_size(target, values[hk], generator)
+            base, width = self._nested_window(hk, values)
+            out[hk] = find_reasonable_step_size(
+                target, values[hk], stream=stream.at(step=0, window=base + width - 1))
         return out
 
-    def _nested_update(self, var, spec: Nested, values, generator, stream, step_size):
+    def _nested_update(self, var, spec: Nested, values, stream, step_size):
         """``n_steps`` sampler steps on the conditional of ``var`` from ε =
-        ``step_size`` (None: the sampler's own start)."""
+        ``step_size`` (None: the sampler's own start), drawing from
+        ``stream`` (at the sweep and the block) in the block's windows."""
         x0 = values[var.key]
         if spec.reset_from_prior:
             x0 = draw_per_chain(var.setprior(values), x0, stream)
         # conditional target given the CURRENT values of all others
         frozen = dict(values)
         target = Target(logdensity_fn=lambda x: var.conditional_logdensity(x, frozen))
-        state = spec.sampler.init(target, x0, generator, step_size=step_size, tuner=spec.tuner)
+        base, width = self._nested_window(var.key, values)
+        state = spec.sampler.init(target, x0, step_size=step_size, tuner=spec.tuner,
+                                  stream=stream.at(window=base + width - 1))
         acc = torch.zeros(x0.shape[0], dtype=torch.float32, device=x0.device)
-        for _ in range(spec.n_steps):
-            state, info = spec.sampler.step(state, target, generator)
+        for k in range(spec.n_steps):
+            state, info = spec.sampler.step(state, target,
+                                            stream=stream.at(window=base + (k + 1) * width - 1))
             accept = info.accept.to(torch.float32)
             if spec.tuner is not None and not spec.sampler.self_tuning:
                 stat = info.accept_stat if spec.sampler.tuner_statistic == "accept_stat" else accept
@@ -285,14 +315,14 @@ class GibbsJob:
             acc = acc + accept
         return state.position, {f"{var.key}.accept": acc / spec.n_steps}
 
-    def _block_update(self, var, values, generator, stream, hoisted, noise=None):
+    def _block_update(self, var, values, stream, hoisted, noise=None):
         """One block of the sweep: (new value, diagnostics dict)."""
         if isinstance(var, Transformation):
             return var.transform(values), {}
         if var.key in self.sweep:
             spec = self.sweep[var.key]
             step_size = spec.step_size if spec.step_size is not None else hoisted.get(var.key)
-            return self._nested_update(var, spec, values, generator, stream, step_size)
+            return self._nested_update(var, spec, values, stream, step_size)
         if var.setpdf is None:
             raise ValueError(
                 f"parameter {var.key!r} needs either a setpdf full conditional "
@@ -319,7 +349,7 @@ class GibbsJob:
             values[u.key] = u.update(values)
         for b, var in enumerate(self._dependents):
             values[var.key], d = self._block_update(
-                var, values, generator, stream.at(step=sweep, site=b), hoisted,
+                var, values, stream.at(step=sweep, site=b), hoisted,
                 None if noise is None else noise.get(var.key)
             )
             diags.update(d)
@@ -383,7 +413,7 @@ class GibbsJob:
             for k in diag_keys
         }
         stream = self._stream(generator, device)
-        hoisted = self._hoist_step_sizes(values, generator)
+        hoisted = self._hoist_step_sizes(values, stream)
         n_steps, ring = self.mcrange.n_steps, self._ring
         for i in range(n_steps):
             values, diags = self._sweep(values, generator, hoisted, stream=stream, sweep=i)
@@ -396,8 +426,8 @@ class GibbsJob:
                 if ring is not None:
                     ring.save({k: values[k] for k in self._csv_keys})
             if ring is not None and ((i + 1) % ring.rows == 0 or i + 1 == n_steps):
-                count, host = ring.take()
-                if count:
+                count, host = ring.take(self._block)
+                if count and self._writers:
                     for k in self._csv_keys:
                         self._writers[k].append_block(count, {k: host[k]})
         raise_on_overflow()
@@ -442,9 +472,10 @@ class GibbsJob:
         return out
 
     def _open_writers(self):
-        """A writer per csv variable and the ring they share, kept across
-        ``run`` and ``resume`` (files reopen in append mode)."""
-        for k in self._csv_keys:
+        """A writer per csv variable (on the rank that writes) and the ring
+        they share, kept across ``run`` and ``resume`` (files reopen in
+        append mode)."""
+        for k in self._csv_keys if writes_output(self.mesh) else ():
             if k not in self._writers:
                 opts = self._opts[k]
                 self._writers[k] = StreamingWriter(

@@ -23,19 +23,28 @@ reaches the host in one copy per field and one host read), or nowhere
 (``'none'``).  With ``verbose`` the loop prints the pooled acceptance rate
 every ``progress_period`` steps, the only host read it adds.
 
+Every draw of a run is keyed, as the JAX package's per-chain keys are
+(``chain_keys = split(run_key, n_chains)``, folded with the step): the job
+draws one run key from the generator per ``run``, ``resume`` or
+``run_phased`` (``ops.keyed.run_key``) and hands the sampler the run's
+``KeyedStream`` at step i; the sampler draws at the sites of its window
+(``ops.keyed``'s table: kernel K2 on the card).  The init draws (a start
+from the prior, the step-size search's momentum) are at step 0 on sites of
+their own, and the shared jitter is one uniform of global chain 0, the
+same on every rank.  A run whose draws were made on the card reads K2's
+overflow counter once at its end (``ops.keyed.raise_on_overflow``).
+
 With ``mesh`` (a ``DeviceMesh`` from ``klara_tpu_torch.parallel``) the
 chains split over the mesh dimension ``chains_axis``: ``n_chains`` stays the
 global count, each rank runs its own contiguous block of chains, and the
 run's cross-chain reductions (pooled tuning, ensemble mass, ChEES, the
 ensemble covariance, the pooled initial step) all-reduce over that
-dimension's group.  Draws follow ``parallel.mesh``'s draw rule (an MH
-proposal distribution draws from a keyed stream instead, which the job
-keys once per ``run``, ``resume`` or ``run_phased`` from the generator and
-hands to the sampler's step with the step's index), so a chain's
-draws do not depend on the number of ranks; every rank must be handed a
-generator seeded alike (checked once per ``run`` or ``resume``).  A run
-whose sampler made keyed draws on the card reads their overflow counter
-once at its end (``ops.keyed.raise_on_overflow``).
+dimension's group.  A keyed draw names a chain by its global index, so a
+rank draws exactly its own chains and a chain's draws do not depend on the
+number of ranks; every rank must be handed a generator seeded alike, since
+the run key comes from it (checked once per run).  A csv run gathers each
+chunk of its ring to the chains group's first rank, and the mesh's first
+rank alone writes (``parallel.mesh.gather_to_first``).
 """
 
 from __future__ import annotations
@@ -52,20 +61,29 @@ from klara_tpu_torch.io.stream import DrawRing, StreamingWriter
 from klara_tpu_torch.jobs.chain import Chain
 from klara_tpu_torch.jobs.gibbs import _as_tensor
 from klara_tpu_torch.jobs.range import MCRange
-from klara_tpu_torch.ops.keyed import KeyedStream, raise_on_overflow
+from klara_tpu_torch.ops.keyed import (
+    INIT_PRIOR,
+    JOB_SITES,
+    MH_SITE,
+    SHARED_JITTER,
+    KeyedStream,
+    raise_on_overflow,
+    run_key,
+)
 from klara_tpu_torch.parallel.mesh import (
     active_block,
     chain_block,
     chain_context,
     check_generators,
     gather_chains,
+    gather_to_first,
     mean_over_chains,
-    no_csv_across_processes,
     sum_over_ranks,
     take_block,
     var_over_chains,
+    writes_output,
 )
-from klara_tpu_torch.samplers.base import Info, Sampler
+from klara_tpu_torch.samplers.base import Info, Sampler, draw_uniform
 from klara_tpu_torch.samplers.hmc import jitter_fraction
 from klara_tpu_torch.tuners.tuners import DualAveragingTuner, Tuner
 
@@ -264,8 +282,6 @@ class MCJob:
         if self.stream_mode not in ("io_callback", "post"):
             raise ValueError(f"unknown stream_mode {self.stream_mode!r}")
         self._block = chain_block(self.mesh, self.chains_axis, self.n_chains)
-        if self.destination == "csv" and self.mesh is not None:
-            no_csv_across_processes()
         if self.trace_dtype is not None:
             dt = getattr(torch, str(self.trace_dtype), None)
             if not isinstance(dt, torch.dtype):
@@ -299,14 +315,32 @@ class MCJob:
         return cls(target, sampler, mcrange, **kwargs), values[pkey]
 
     # ------------------------------------------------------------------ init
-    def _prepare_x0(self, generator, x0):
-        """The initial positions as (n_chains, ...): drawn from the prior when
-        ``x0`` is None; one position is shared by every chain.  Scalar
-        positions (a 0-d ``x0``, per-chain scalars (n_chains,) with
-        ``target.dim == 1``, 1-d prior draws) lift the target to dim 1."""
+    def _run_device(self, generator, x0) -> torch.device:
+        """The run's device: ``device``, else x0's, else (a start from the
+        prior) the generator's, else the card (``resolve_device``)."""
+        if self.device is None and x0 is None and generator is not None:
+            return generator.device
+        return resolve_device(self.device, (x0,))
+
+    def _run_stream(self, generator, device) -> KeyedStream:
+        """The run's keyed stream: a run key drawn from ``generator`` (one
+        draw) on ``device``, over this rank's chains named by their global
+        indices, at step 0 in MCJob's window."""
+        block = self._block
+        return KeyedStream(run_key(generator, device),
+                           self.n_chains if block is None else block.local,
+                           0 if block is None else block.offset)
+
+    def _prepare_x0(self, stream, x0):
+        """The initial positions as (n_chains, ...): drawn from the prior
+        when ``x0`` is None, at ``stream``'s ``INIT_PRIOR`` site (only the
+        stream's chains: on a mesh the rank's block); one position is shared
+        by every chain.  Scalar positions (a 0-d ``x0``, per-chain scalars
+        (n_chains,) with ``target.dim == 1``, 1-d prior draws) lift the
+        target to dim 1."""
         from_prior = x0 is None
-        if from_prior:  # the prior draws on its generator's device
-            x0 = self.target.sample_prior(generator, self.n_chains)
+        if from_prior:
+            x0 = self.target.sample_prior(stream.window_site(INIT_PRIOR), stream.chains)
         x0 = torch.as_tensor(x0).to(resolve_device(self.device, (x0,)))
         per_chain_1d = x0.dim() == 1 and self.n_chains > 1 and x0.shape[0] == self.n_chains
         if x0.dim() == 0 or (from_prior and x0.dim() == 1) or (
@@ -322,7 +356,7 @@ class MCJob:
                 "scalar positions. Set Target(dim=...) or pass x0 shaped "
                 "(n_chains, dim)."
             )
-        if x0.dim() == 1 or x0.shape[0] != self.n_chains:
+        if not from_prior and (x0.dim() == 1 or x0.shape[0] != self.n_chains):
             x0 = x0.expand((self.n_chains,) + tuple(x0.shape))
         return x0.contiguous()
 
@@ -383,11 +417,12 @@ class MCJob:
                 f"(logdensity={float(lt0[0])}): initial value out of support"
             )
 
-    def _init_states(self, generator, x0, momentum=None):
+    def _init_states(self, stream, x0, momentum=None):
         # only the Hamiltonian samplers' init takes a momentum
         kw = {} if momentum is None else {"momentum": momentum}
         states = self.sampler.init(
-            self.target, x0, generator, step_size=self.step_size, tuner=self.tuner, **kw
+            self.target, x0, None, step_size=self.step_size, tuner=self.tuner, stream=stream,
+            **kw
         )
         if self.pooled_tuning and hasattr(states, "tune") and not self.sampler.self_tuning:
             # one shared step: geometric mean of the per-chain searches, μ
@@ -428,39 +463,31 @@ class MCJob:
             and getattr(s, "dynamic_nleaps", False)
         )
 
-    def _stream(self, generator, states):
-        """The run's keyed stream over this rank's chains, keyed from
-        ``generator`` (one draw), for a sampler whose step takes one; else
-        None."""
-        if not getattr(self.sampler, "keyed", False):
-            return None
-        x = states.position
-        offset = 0 if self._block is None else self._block.offset
-        return KeyedStream.for_run(generator, x.device, x.shape[0], offset)
-
-    def _loop(self, states, generator, start, stop, adapt, buffers=None, ring=None,
-              stream=None):
-        """Steps [start, stop).  Saved draws go to ``buffers`` (device traces)
-        and ``ring`` (a csv stream, handed to the writer after every chunk
-        of ``ring.rows`` steps and at ``stop``).  With shared ('step')
-        jitter one draw per step scales every chain's λ through a temporary
-        log_traj offset, so all chains run the same leap count.  A keyed
-        sampler draws from ``stream`` at step i."""
+    def _loop(self, states, stream, start, stop, adapt, buffers=None, ring=None):
+        """Steps [start, stop), step i drawing from ``stream`` at step i.
+        Saved draws go to ``buffers`` (device traces) and ``ring`` (a csv
+        stream, handed to the writer after every chunk of ``ring.rows``
+        steps and at ``stop``).  With shared ('step') jitter one draw per
+        step, the same on every rank, scales every chain's λ through a
+        temporary log_traj offset, so all chains run the same leap count."""
         sampler, target = self.sampler, self.target
         burnin, thinning = self.mcrange.burnin, self.mcrange.thinning
         shared = self._shared_jitter()
         step_sampler = dataclasses.replace(sampler, jitter=0.0) if shared else sampler
+        if sampler.keyed_sites(states.position) > MH_SITE + 1 - JOB_SITES:
+            raise ValueError(f"{type(sampler).__name__} draws at more sites a step than "
+                             f"MCJob's window holds ({MH_SITE + 1 - JOB_SITES})")
         for i in range(start, stop):
             prev_pos = states.position
             frac_shared = 1.0
+            at = stream.at(step=i)
             if shared:
                 lt_saved = states.log_traj
-                u = torch.rand((), generator=generator, device=lt_saved.device,
-                               dtype=lt_saved.dtype)
+                # global chain 0's draw: the same on every rank, no collective
+                u = draw_uniform(at.at(chains=1, offset=0), SHARED_JITTER, (1,), lt_saved)[0]
                 frac_shared = jitter_fraction(u, sampler.jitter)
                 states = states._replace(log_traj=lt_saved + torch.log(frac_shared))
-            kw = {} if stream is None else {"stream": stream.at(step=i)}
-            states, infos = step_sampler.step(states, target, generator, **kw)
+            states, infos = step_sampler.step(states, target, stream=at)
             if shared:
                 states = states._replace(log_traj=lt_saved)
             if adapt:
@@ -471,7 +498,7 @@ class MCJob:
                 if ring is not None:
                     ring.save(self._fields(states, infos))
             if ring is not None and ((i + 1 - start) % ring.rows == 0 or i + 1 == stop):
-                self._writer.append_block(*ring.take())
+                self._flush_ring(ring)
             if self.verbose and (i + 1) % self.progress_period == 0:
                 self._report(i, infos)
         return states
@@ -516,26 +543,31 @@ class MCJob:
         """Run all ``mcrange.n_steps`` steps, adapting during burnin and
         saving the post-burnin draws to ``destination``."""
         check_generators(generator, self.mesh)
-        x0 = self._start(generator, x0)
+        stream = self._run_stream(generator, self._run_device(generator, x0))
+        x0 = self._start(stream, x0)
         self._open_writer()
         with chain_context(self._block):
-            return self._drive(self._init_states(generator, x0), generator)
+            return self._drive(self._init_states(stream, x0), stream)
 
     def resume(self, generator, chain: Chain) -> Chain:
         """Another ``mcrange.n_steps`` steps from ``chain.final_state`` (a live
         state or one from ``io.load_checkpoint``), burnin and adaptation
-        included, as ``run`` from that state; a csv run appends its draws to
-        the files.  On a mesh the state may hold the global chains (a
-        reloaded checkpoint: this rank takes its block) or this rank's."""
+        included, as ``run`` from that state, on a run key of its own; a csv
+        run appends its draws to the files.  On a mesh the state may hold
+        the global chains (a reloaded checkpoint: this rank takes its block)
+        or this rank's."""
         check_generators(generator, self.mesh)
+        states = take_block(chain.final_state, self._block)
+        stream = self._run_stream(generator, states.position.device)
         self._open_writer()
         with chain_context(self._block):
-            return self._drive(take_block(chain.final_state, self._block), generator)
+            return self._drive(states, stream)
 
-    def _start(self, generator, x0):
-        """This rank's initial positions: ``x0`` prepared for the global
-        chains (``_prepare_x0``), checked, then cut to the rank's block."""
-        x0 = self._prepare_x0(generator, x0)
+    def _start(self, stream, x0):
+        """This rank's initial positions: ``x0`` prepared (``_prepare_x0``;
+        given, for the global chains), checked, then cut to the rank's
+        block."""
+        x0 = self._prepare_x0(stream, x0)
         self._checkin(x0)
         return take_block(x0, self._block)
 
@@ -543,12 +575,11 @@ class MCJob:
         return Chain(samples=buffers[0], diagnostics=buffers[1], final_state=states,
                      mesh=self.mesh, chains_axis=self.chains_axis)
 
-    def _drive(self, states, generator) -> Chain:
+    def _drive(self, states, stream) -> Chain:
         buffers = ({}, {})
         keep = self.destination == "nstate" or self._buffered_csv
-        states = self._loop(states, generator, 0, self.mcrange.n_steps, True,
-                            buffers if keep else None, self._ring,
-                            self._stream(generator, states))
+        states = self._loop(states, stream, 0, self.mcrange.n_steps, True,
+                            buffers if keep else None, self._ring)
         raise_on_overflow()
         return self._squeeze(self._finish_output(self._chain(buffers, states)))
 
@@ -557,22 +588,34 @@ class MCJob:
         return self.destination == "csv" and self.stream_mode == "post"
 
     def _open_writer(self):
-        """The csv stream's writer and ring, kept across ``run`` and
-        ``resume`` (files reopen in append mode)."""
-        if self.destination == "csv" and self.stream_mode == "io_callback" and self._writer is None:
-            self._writer = StreamingWriter(self.filepath, flush=self.flush,
-                                           sample_fields=set(self.monitor))
+        """The csv stream's ring and (on the rank that writes) its writer,
+        kept across ``run`` and ``resume`` (files reopen in append mode)."""
+        if self.destination == "csv" and self.stream_mode == "io_callback" and self._ring is None:
             self._ring = DrawRing(max(1, min(self.stream_chunk, self.mcrange.n_steps)))
+            if writes_output(self.mesh):
+                self._writer = StreamingWriter(self.filepath, flush=self.flush,
+                                               sample_fields=set(self.monitor))
+
+    def _flush_ring(self, ring):
+        """The ring's chunk to the files: on a split mesh gathered to the
+        first rank of the chains group, and written by the mesh's first."""
+        count, host = ring.take(self._block)
+        if self._writer is not None:
+            self._writer.append_block(count, host)
 
     def _finish_output(self, chain: Chain) -> Chain:
         """Close the stream's files (manifest and sidecars with the final row
         counts), or with ``stream_mode='post'`` append the device traces to
-        them."""
+        them (on a split mesh gathered to the chains group's first rank)."""
         if self._writer is not None:
             self._writer.close()
         elif self._buffered_csv:
-            with StreamingWriter(self.filepath, sample_fields=set(self.monitor)) as w:
-                w.append_block(self.mcrange.n_post, {**chain.samples, **chain.diagnostics})
+            fields = {**chain.samples, **chain.diagnostics}
+            if self._block is not None and self._block.split:
+                fields = {k: gather_to_first(v, self._block, dim=1) for k, v in fields.items()}
+            if writes_output(self.mesh):
+                with StreamingWriter(self.filepath, sample_fields=set(self.monitor)) as w:
+                    w.append_block(self.mcrange.n_post, fields)
         return chain
 
     def run_phased(self, generator=None, x0=None):
@@ -584,24 +627,23 @@ class MCJob:
         if self.destination == "csv":
             raise ValueError("run_phased supports destination 'nstate'/'none' only")
         check_generators(generator, self.mesh)
-        x0 = self._start(generator, x0)
+        stream = self._run_stream(generator, self._run_device(generator, x0))
+        x0 = self._start(stream, x0)
         device = x0.device
         _sync(device)
         t0 = time.perf_counter()
         with chain_context(self._block):
-            states = self._init_states(generator, x0)
-            stream = self._stream(generator, states)
+            states = self._init_states(stream, x0)
             burnin = self.mcrange.burnin
             if burnin > 0:
-                states = self._loop(states, generator, 0, burnin, True, stream=stream)
+                states = self._loop(states, stream, 0, burnin, True)
                 if hasattr(states, "tune") and not self.sampler.self_tuning:
                     states = states._replace(tune=self.tuner.finalize(states.tune))
             _sync(device)
             t1 = time.perf_counter()
             buffers = ({}, {})
-            states = self._loop(states, generator, burnin, self.mcrange.n_steps, False,
-                                buffers if self.destination == "nstate" else None,
-                                stream=stream)
+            states = self._loop(states, stream, burnin, self.mcrange.n_steps, False,
+                                buffers if self.destination == "nstate" else None)
         _sync(device)
         raise_on_overflow()
         t2 = time.perf_counter()

@@ -16,17 +16,51 @@ drawn once per run from the run's ``torch.Generator`` (``run_key``; it stays
 on the device, so no host read).  The counter is four words:
 
     c0 = the chain's global index
-    c1 = the step (the Gibbs sweep, or the count of MH proposals), mod 2^32
-    c2 = site << 8 | part   (site < 2^24: the Gibbs block's index, or
-                             ``MH_SITE``; part < 256: 0, or 1 for the
-                             second gamma draw of a Beta)
+    c1 = the step (the MCJob step, the Gibbs sweep), mod 2^32
+    c2 = site << 8 | part   (site < 2^24, below; part < 256: 0, or 1 for
+                             the second gamma draw of a Beta)
     c3 = element << 12 | call   (element < 2^20: the index within the
                                  chain's draw; call < 2^12: the element's
                                  Philox call)
 
 Distinct (chain, step, site, part, element, call) are distinct counters, so
-no two numbers of a run share a (key, counter) pair.  A thread owns one
-element and makes the calls its own draw needs:
+no two numbers of a run share a (key, counter) pair.  The sites:
+
+    [0, NESTED_SITES)           a Gibbs conditional block b at site b (and a
+                                nested block's ``reset_from_prior`` start)
+    [NESTED_SITES, JOB_SITES)   the windows of nested Gibbs blocks' samplers,
+                                one window per nested step of a sweep
+    [JOB_SITES, MH_SITE]        MCJob's window, its top ``MH_SITE``
+
+A sampler draws at site = its stream's ``window`` − the draw's offset
+(``KeyedStream.window_site``), so one sampler's code serves MCJob's window
+and a nested block's.  The offsets, one draw each per step (a (C, ...) draw
+whose element counter runs over the rest of its shape):
+
+    PROPOSAL        0   the proposal: an MH proposal distribution (at
+                        ``MH_SITE`` in MCJob, as before), the random-walk
+                        or Langevin normal of MH, MALA, SMMALA, RAM, AM, ARS
+    MOMENTUM        1   HMC's and NUTS's momentum
+    ACCEPT          2   the accept uniform (C,)
+    JITTER          3   HMC's per-chain jitter of the trajectory length (C,)
+    NUTS_UNIFORMS   4   NUTS's slice, direction, swap and take uniforms as
+                        one (C, 1 + 2J + 2^J − 1) draw
+    SLICE_LEVEL     5   the slice sampler's (C, D) slice levels
+    SLICE_INTERVAL  6   its (C, D) interval placements
+    AM_COMPONENT    7   AM's mixture component (C,)
+    AMWG_PROPOSAL   8   AMWG's (C, D) per-coordinate proposals
+    AMWG_ACCEPT     9   AMWG's (C, D) per-coordinate accept uniforms
+    INIT_MOMENTUM  10   the step-size search's momentum (at step 0)
+    INIT_PRIOR     11   MCJob's start drawn from the prior (at step 0)
+    SHARED_JITTER  12   MCJob's shared jitter: one (1,) uniform of global
+                        chain 0, the same on every rank
+    FIXED_SITES + i·K + k   the slice sampler's k-th shrink uniform (C,) of
+                        coordinate i, K = ``max_shrinks`` (a data-dependent
+                        loop: its index is in the site, not the part)
+
+A sampler needs ``FIXED_SITES`` offsets, the slice sampler ``FIXED_SITES +
+D·K`` (``Sampler.keyed_sites``); a job checks that its windows hold them.
+A thread owns one element and makes the calls its own draw needs:
 
 - uniform on (0, 1): call 0; f32 from the top 24 bits of word 0, f64 from
   53 bits of words 0-1 (27 + 26), a zero replaced by half the spacing;
@@ -53,14 +87,13 @@ NaN and counted in a counter on the device; ``raise_on_overflow`` reads it
 at once.
 
 The plain version (``draws_reference``) computes the same Philox words in
-int64 arithmetic (the 32 x 32 products split into 16-bit halves, since
-int64 overflows past 2^63) and the same transforms in the same order of
-operations; it is what CPU tensors take, and what ``chip_smoke.py`` holds
-the kernel to on the card.  Bound on the H100: the SASS instructions of
-its Philox calls and of the cheap and slow tests its elements ran, each
-pipe at its rate (``chip_smoke.py`` counts them from ``cuobjdump -sass``
-of K2's own code and weights them by a run's attempts), or its bytes, the
-larger.
+numpy's uint64 on the host (a 32 x 32 product is exact there) and the same
+transforms in torch, in the same order of operations; it is what CPU
+tensors take, and what ``chip_smoke.py`` holds the kernel to on the card.
+Bound on the H100: the SASS instructions of its Philox calls and of the
+cheap and slow tests its elements ran, each pipe at its rate
+(``chip_smoke.py`` counts them from ``cuobjdump -sass`` of K2's own code
+and weights them by a run's attempts), or its bytes, the larger.
 
 A launch does on the host only what changes from launch to launch: a
 stream checks its fields when it is made, what follows from a draw's
@@ -77,6 +110,7 @@ import operator
 import struct
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from klara_tpu_torch.ops import _build
@@ -85,7 +119,13 @@ UNIFORM, NORMAL, GAMMA, POISSON, BINOMIAL = range(5)
 MODES = {"uniform": UNIFORM, "normal": NORMAL, "gamma": GAMMA, "poisson": POISSON,
          "binomial": BINOMIAL}
 _MODE_NAMES = {v: k for k, v in MODES.items()}
-MH_SITE = (1 << 24) - 1  # the MH proposal's site (Gibbs blocks count from 0)
+MH_SITE = (1 << 24) - 1  # the top of MCJob's window: its MH proposal's site
+NESTED_SITES = 1 << 20   # nested Gibbs blocks' windows start here (Gibbs blocks below)
+JOB_SITES = 1 << 23      # MCJob's window starts here
+# a sampler's draw offsets within its window (site = window − offset)
+(PROPOSAL, MOMENTUM, ACCEPT, JITTER, NUTS_UNIFORMS, SLICE_LEVEL, SLICE_INTERVAL, AM_COMPONENT,
+ AMWG_PROPOSAL, AMWG_ACCEPT, INIT_MOMENTUM, INIT_PRIOR, SHARED_JITTER) = range(13)
+FIXED_SITES = 16         # the fixed offsets' room; the slice sampler's shrink draws follow
 MAX_ATTEMPTS = 64        # rejection attempts: gamma, PTRS, BTRS, Poisson inversion restarts
 POISSON_INV_MAX_K = 100  # an inversion search past k = 100 restarts
 BINOMIAL_INV_MAX = 1024  # uniforms of one geometric-sum binomial draw
@@ -95,6 +135,9 @@ CALL_BITS = 12
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85
 _MASK = 0xFFFFFFFF
+_MULT = np.array([_M1, _M0], dtype=np.uint64)  # x's rows reversed: (c2, c0) times (M1, M0)
+_ROUND_W = np.arange(10, dtype=np.uint64)[:, None] * np.array([_W0, _W1], dtype=np.uint64)
+_MASK_U64, _U32 = np.uint64(_MASK), np.uint64(32)
 _TWO_PI = 2.0 * math.pi
 
 # K2 launches in this process (plain counters; reset them by assignment).
@@ -107,40 +150,43 @@ _PENDING = set()   # devices with launches since the last raise_on_overflow
 
 
 # ------------------------------------------------------------------ Philox
-def philox4x32(c0, c1, c2, c3, k0, k1):
-    """Philox4x32-10 on int64 tensors (or ints) holding 32-bit words; the
-    key words are ints (or 0-d tensors).  A round's two 32 x 32 products run
-    as one product of the lanes (c2, c0) with (M1, M0), each split at 16
-    bits of the multiplier so that no partial product passes 2^48:
-    a·m = p1·2^16 + p0, t = p1 + (p0 >> 16), hi = t >> 16,
-    lo = ((t mod 2^16) << 16) | (p0 mod 2^16)."""
-    k0, k1 = int(k0), int(k1)
-    words = [torch.as_tensor(c, dtype=torch.int64) for c in (c0, c1, c2, c3)]
-    device = next((w.device for w in words if w.dim()), words[0].device)
-    shape = torch.broadcast_shapes(*(w.shape for w in words))
-    ones = (1,) * len(shape)
-    even = torch.empty((2,) + shape, dtype=torch.int64, device=device)  # (c0, c2)
-    odd = torch.empty_like(even)                                        # (c1, c3)
-    even[0], even[1], odd[0], odd[1] = (w.to(device) for w in (words[0], words[2], words[1],
-                                                               words[3]))
-    mult = torch.tensor([[_M1 & 0xFFFF, _M0 & 0xFFFF], [_M1 >> 16, _M0 >> 16]],
-                        dtype=torch.int64, device=device).view((2, 2) + ones)
-    keys = torch.tensor([[(k0 + r * _W0) & _MASK, (k1 + r * _W1) & _MASK] for r in range(10)],
-                        dtype=torch.int64, device=device).view((10, 2) + ones)
+def _philox_rounds(x, y, k0: int, k1: int):
+    """Philox4x32-10's ten rounds, in place, on the uint64 lanes x = (c0, c2)
+    and y = (c1, c3), each a (2, ...) array of 32-bit words: a round's two
+    32 x 32 products are one product of x's rows reversed with (M1, M0),
+    exact in uint64 (hi = p >> 32, lo = p mod 2^32)."""
+    ones = (1,) * (x.ndim - 1)
+    mult = _MULT.reshape((2,) + ones)
+    keys = (np.array([k0, k1], dtype=np.uint64) + _ROUND_W) & _MASK_U64
+    p = np.empty_like(x)
     for r in range(10):
-        p0, p1 = (even.flip(0) * mult).unbind(0)  # (c2, c0) times (M1, M0), low and high halves
-        t = p0 >> 16
-        t += p1
-        hi = t >> 16
-        t &= 0xFFFF
-        t <<= 16
-        p0 &= 0xFFFF
-        t |= p0
+        np.multiply(x[::-1], mult, out=p)  # (c2·M1, c0·M0)
         # c0' = hi(c2·M1) ^ c1 ^ k0, c2' = hi(c0·M0) ^ c3 ^ k1, c1' = lo(c2·M1), c3' = lo(c0·M0)
-        hi ^= odd
-        hi ^= keys[r]
-        even, odd = hi, t
-    return even[0], odd[0], even[1], odd[1]
+        np.right_shift(p, _U32, out=x)
+        x ^= y
+        x ^= keys[r].reshape((2,) + ones)
+        np.bitwise_and(p, _MASK_U64, out=y)
+
+
+def _words(x, y, device):
+    """(c0, c1, c2, c3) of the lanes as int64 tensors on ``device``."""
+    w = torch.from_numpy(np.concatenate([x, y]).view(np.int64)).to(device)
+    return w[0], w[2], w[1], w[3]
+
+
+def philox4x32(c0, c1, c2, c3, k0, k1):
+    """Philox4x32-10 of the counter words (ints or int64 tensors holding
+    32-bit words, broadcast together) under the key words ``k0``, ``k1``
+    (ints or 0-d tensors): four int64 tensors on the counter tensors'
+    device, computed in numpy's uint64 on the host (``_philox_rounds``)."""
+    device = next((c.device for c in (c0, c1, c2, c3) if torch.is_tensor(c) and c.dim()),
+                  torch.device("cpu"))
+    c0, c1, c2, c3 = np.broadcast_arrays(*(
+        np.asarray(c.cpu() if torch.is_tensor(c) else c, dtype=np.int64).astype(np.uint64)
+        for c in (c0, c1, c2, c3)))
+    x, y = np.stack([c0, c2]), np.stack([c1, c3])
+    _philox_rounds(x, y, int(k0), int(k1))
+    return _words(x, y, device)
 
 
 def _u01f(w):
@@ -204,7 +250,9 @@ class KeyedStream:
     ``offset``, at counter (``step``, ``site``, ``part``).  ``key`` is a 0-d
     int64 tensor (``run_key``) on the draws' device; ``step`` a number or a
     0-d int64 tensor on that device.  Every draw's shape has the chains on
-    axis 0; the element counter runs over the rest of it.
+    axis 0; the element counter runs over the rest of it.  ``window`` is the
+    top site of a sampler's draws (``window_site``): MCJob's, ``MH_SITE``,
+    unless a nested Gibbs block names its own.
 
     A stream is immutable and checks its fields once, when it is made:
     whatever its counter cannot name raises here (and in ``at``), not at a
@@ -212,16 +260,17 @@ class KeyedStream:
     int step's word), so that a launch only reads them."""
 
     __slots__ = ("_key", "_chains", "_offset", "_step", "_site", "_part", "_device",
-                 "_site_word", "_step_add", "_step_tensor")
+                 "_site_word", "_step_add", "_step_tensor", "_window")
 
     def __init__(self, key, chains: int, offset: int = 0, step: Any = 0, site: int = 0,
-                 part: int = 0):
+                 part: int = 0, window: int = MH_SITE):
         if not (torch.is_tensor(key) and key.dtype == torch.int64 and key.numel() == 1):
             raise ValueError("keyed draws: the run key is a 0-d int64 tensor (run_key)")
         self._key, self._device = key, key.device
         self._set_chains(chains, offset)
         self._set_step(step)
         self._set_site(site, part)
+        self._set_window(window)
 
     @classmethod
     def for_run(cls, generator, device, chains: int, offset: int = 0):
@@ -236,10 +285,12 @@ class KeyedStream:
     site = property(lambda self: self._site)
     part = property(lambda self: self._part)
     device = property(lambda self: self._device)
+    window = property(lambda self: self._window)
 
     def __repr__(self):
         return (f"KeyedStream(chains={self._chains}, offset={self._offset}, step={self._step!r}, "
-                f"site={self._site}, part={self._part}, device={self._device})")
+                f"site={self._site}, part={self._part}, window={self._window}, "
+                f"device={self._device})")
 
     def _set_chains(self, chains, offset):
         chains, offset = operator.index(chains), operator.index(offset)
@@ -264,11 +315,22 @@ class KeyedStream:
             raise ValueError(f"keyed draws: site {site} or part {part} out of range")
         self._site, self._part, self._site_word = site, part, (site << 8) | part
 
-    def at(self, *, step=_SAME, site=_SAME, part=_SAME, chains=_SAME, offset=_SAME):
-        """The stream at another ``step``, ``site``, ``part``, chain count
-        or offset; the other fields kept (and not checked again)."""
+    def _set_window(self, window):
+        window = operator.index(window)
+        if not 0 <= window <= MH_SITE:
+            raise ValueError(f"keyed draws: window {window} out of range")
+        self._window = window
+
+    def at(self, *, step=_SAME, site=_SAME, part=_SAME, chains=_SAME, offset=_SAME,
+           window=_SAME):
+        """The stream at another ``step``, ``site``, ``part``, chain count,
+        offset or window; the other fields kept (and not checked again)."""
         new = object.__new__(KeyedStream)
         new._key, new._device = self._key, self._device
+        if window is _SAME:
+            new._window = self._window
+        else:
+            new._set_window(window)
         if chains is _SAME and offset is _SAME:
             new._chains, new._offset = self._chains, self._offset
         else:
@@ -285,6 +347,11 @@ class KeyedStream:
             new._set_site(self._site if site is _SAME else site,
                           self._part if part is _SAME else part)
         return new
+
+    def window_site(self, offset: int):
+        """The stream at a sampler's draw ``offset``: site = window − offset,
+        part 0 (the table in the module's docstring)."""
+        return self.at(site=self._window - offset, part=0)
 
     def uniform(self, shape, dtype=torch.float32):
         return draws(self, UNIFORM, shape, dtype)[0]
@@ -346,9 +413,15 @@ class _Ctx:
         self.c2, self.elems, self.offset = site_word, elems, stream.offset
 
     def words(self, idx, call):
-        c0 = self.offset + torch.div(idx, self.elems, rounding_mode="floor")
-        c3 = ((idx % self.elems) << CALL_BITS) | call
-        return philox4x32(c0, self.c1, self.c2, c3, self.k0, self.k1)
+        i = idx.cpu().numpy()
+        x = np.empty((2,) + i.shape, dtype=np.uint64)
+        y = np.empty_like(x)
+        x[0] = self.offset + i // self.elems
+        x[1] = self.c2
+        y[0] = self.c1
+        y[1] = ((i % self.elems) << CALL_BITS) | call
+        _philox_rounds(x, y, self.k0, self.k1)
+        return _words(x, y, idx.device)
 
 
 def draws_reference(stream: KeyedStream, mode, shape, dtype, p0=None, p1=None):

@@ -18,26 +18,16 @@ step is explicit.  The design:
    ``Chain`` names its mesh.  No DTensor: K1 is a ctypes launch on plain
    tensors, and the samplers' masked loops gain nothing from sharding
    propagation.
-3. Two rules make a chain's draws independent of the rank count.
-   - The draw rule (``draw_chains``), for the samplers' fixed-count draws
-     from the ``torch.Generator`` (momentum, accept uniforms, the shared
-     jitter, NUTS's directions, the slice sampler's uniforms): a draw with a
-     chains axis is made at the global chain count on every rank and the
-     rank keeps its block along that axis (axis 0, but axis 1 for NUTS's
-     (J, C) draws).  Every rank is handed a generator seeded alike, and
-     every rank's generator advances alike: a replicated draw (the shared
-     jitter) agrees everywhere without a broadcast.  R ranks draw R times
-     the numbers.  A mismatch of generators raises (``check_generators``,
-     one all-gather per run).  Without a split block a draw is exactly what
-     it is without a mesh.
-   - The keyed stream (``ops.keyed.KeyedStream``, kernel K2), for draws
-     from a ``Distribution``: the Gibbs conditionals and ``reset_from_prior``
-     starts, and an MH proposal distribution.  A draw is a function of the
-     run key (drawn from the generator once per run, or once per step by an
-     MH step handed no job's stream; replicated) and a counter holding the
-     chain's global index, so a rank draws exactly its
-     own chains, however many numbers a gamma, Poisson or binomial draw
-     takes, and issues no collective for it.
+3. Draws.  Every draw of a job is keyed (``ops.keyed.KeyedStream``, kernel
+   K2 on the card), as the JAX package's per-chain keys are: a function of
+   the run key, drawn from the generator once per run (replicated: every
+   rank is handed a generator seeded alike, and a mismatch raises,
+   ``check_generators``, one all-gather per run), and a counter holding the
+   chain's global index, the step and the draw's site.  So a rank draws
+   exactly its own chains, however many numbers a draw takes, and issues no
+   collective for it; the shared jitter is global chain 0's draw, the same
+   on every rank.  Without a split block a draw is exactly what it is
+   without a mesh.
 4. Reductions.  A cross-chain mean is the all-reduce of each rank's local
    mean weighted by its share of the chains (``mean_over_chains``); a
    variance pools each rank's local mean and variance
@@ -52,8 +42,8 @@ step is explicit.  The design:
    rank uses its own count (the loops are masked per chain; no chain's
    result changes).  Under the param-sharded target the ranks of a param
    group hold the same chains and read the same count.  A loop that draws
-   inside (the slice sampler's shrinkage) takes its count across the ranks
-   (``any_over_chains``), else the generators would drift apart.
+   inside (the slice sampler's shrinkage) keys each iteration's draw at a
+   site of its own, so it too runs on the rank's own count.
 6. The param-sharded logreg target is in ``param_shard.py``.
 7. Backends.  ``initialize_distributed`` joins a process group (a no-op for
    one process); ``chain_mesh`` and ``mesh2d`` on a process with no group
@@ -62,7 +52,12 @@ step is explicit.  The design:
    there is no card); NCCL on the card, gloo where the caller asks for the
    CPU or names ``backend="gloo"`` (two ranks on one card: NCCL refuses
    that).  Nothing falls back.
-8. Statistics of a meshed chain are global on every rank.  ``mean``,
+8. Output.  A csv run gathers each chunk of its ring (and a ``'post'``
+   run its traces) to the first rank of the chains group
+   (``gather_to_first``: host tensors on gloo, card tensors on NCCL; not
+   counted in ``COLLECTIVES``), and the mesh's first rank alone writes
+   (``writes_output``), so the files are the one process's byte for byte.
+9. Statistics of a meshed chain are global on every rank.  ``mean``,
    ``acceptance`` and the chain-summed ``ess`` all-reduce their sums;
    ``mcvar``, ``mcse``, ``iact`` and per-chain ``ess`` and ``mean`` compute
    on the rank's chains and all-gather their per-chain results; split-chain
@@ -71,11 +66,11 @@ step is explicit.  The design:
    and the zero-variance estimators, which need every draw, all-gather the
    draws (``stats._common``).
 
-The draws and reductions act on the block of the enclosing
-``chain_context(block)``, and on no mesh outside one: a job enters it for
-the length of a run, a statistic of a meshed chain for its call, so the
-samplers' draw sites, the adaptation hooks and the statistics find the
-rank's block without a change of their signatures.  ``COLLECTIVES`` counts
+The reductions (and a sampler's stream keyed without a job) act on the
+block of the enclosing ``chain_context(block)``, and on no mesh outside
+one: a job enters it for the length of a run, a statistic of a meshed chain
+for its call, so the adaptation hooks and the statistics find the rank's
+block without a change of their signatures.  ``COLLECTIVES`` counts
 the helpers' calls.
 """
 
@@ -164,22 +159,6 @@ def active_block() -> Optional[ChainBlock]:
     return _ACTIVE.get()
 
 
-# ------------------------------------------------------------------ draws
-def draw_chains(fn, shape, chains_dim: int = 0):
-    """``fn(shape)`` under the draw rule: with a split active block the draw
-    is made at the global chain count along ``chains_dim`` and this rank's
-    block of it is returned."""
-    b = _ACTIVE.get()
-    if b is None or not b.split:
-        return fn(tuple(shape))
-    full = list(shape)
-    if full[chains_dim] != b.local:
-        raise ValueError(f"draw of shape {tuple(shape)}: axis {chains_dim} is not the "
-                         f"{b.local} local chains")
-    full[chains_dim] = b.total
-    return fn(tuple(full)).narrow(chains_dim, b.offset, b.local).contiguous()
-
-
 # ------------------------------------------------------------- collectives
 def all_reduce(t, group, op=dist.ReduceOp.SUM):
     """``dist.all_reduce`` in place on ``t``, counted; returns ``t``."""
@@ -235,16 +214,6 @@ def var_over_chains(x):
     return all_reduce((pooled * w if b.split else pooled).contiguous(), b.group)
 
 
-def any_over_chains(mask) -> bool:
-    """``bool(mask.any())`` over the global chains: one host read, and one
-    all-reduce under a split block, so every rank reads the same."""
-    b = _ACTIVE.get()
-    if b is None or not b.split:
-        return bool(mask.any())
-    flag = all_reduce(mask.any().to(torch.int32).reshape(1), b.group, dist.ReduceOp.MAX)
-    return bool(flag[0])
-
-
 def gather_chains(x, dim: int = 0):
     """The global tensor: every rank's block concatenated along ``dim``
     (``x`` itself unless the active block is split)."""
@@ -252,6 +221,30 @@ def gather_chains(x, dim: int = 0):
     if b is None or not b.split:
         return x
     return all_gather_cat(x, b.group, dim)
+
+
+def gather_to_first(t, block, dim: int = 0):
+    """Every rank's ``t`` of the block's chains group, concatenated along
+    ``dim`` in rank order, on the group's first rank (None on the others).
+    On gloo the tensors go through host memory (its gather takes host
+    tensors), on NCCL they stay on the card.  A float narrower than 32 bits
+    widens to f32 and a bool becomes uint8 first, exactly."""
+    if t.dtype == torch.bool:
+        t = t.to(torch.uint8)
+    elif t.is_floating_point() and torch.finfo(t.dtype).bits < 32:
+        t = t.float()
+    if dist.get_backend(block.group) != "nccl":
+        t = t.cpu()
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(block.size)] if block.rank == 0 else None
+    dist.gather(t, parts, dst=dist.get_global_rank(block.group, 0), group=block.group)
+    return None if parts is None else torch.cat(parts, dim)
+
+
+def writes_output(mesh) -> bool:
+    """Whether this process writes a job's files: without a mesh, or where
+    its coordinate is 0 in every dimension of the mesh."""
+    return mesh is None or all(mesh.get_local_rank(i) == 0 for i in range(mesh.ndim))
 
 
 def check_generators(generator, mesh) -> None:
@@ -274,18 +267,8 @@ def check_generators(generator, mesh) -> None:
         if len(set(all_gather_cat(t, group).tolist())) != 1:
             raise RuntimeError(
                 f"the ranks of mesh dimension {name!r} hold generators in different "
-                "states: seed every rank's generator alike (the draw rule needs it)"
+                "states: seed every rank's generator alike (the run key comes from it)"
             )
-
-
-def no_csv_across_processes() -> None:
-    """Raise where the process group has more than one process: csv output
-    under a mesh writes from one process only."""
-    if dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "csv output on a mesh of more than one process is not supported: "
-            "use destination='nstate' and write each rank's block yourself"
-        )
 
 
 # ------------------------------------------------------------ mesh, groups

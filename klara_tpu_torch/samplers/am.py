@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from klara_tpu_torch.ops.keyed import AM_COMPONENT, PROPOSAL
 from klara_tpu_torch.samplers.base import (
     Info,
     Sampler,
@@ -33,6 +34,7 @@ from klara_tpu_torch.samplers.base import (
     metropolis_accept,
     per_chain_step,
     scale_matrix,
+    step_stream,
 )
 from klara_tpu_torch.stats.covariance import recursive_covariance
 from klara_tpu_torch.stats.mean import recursive_mean
@@ -59,7 +61,8 @@ class AM(Sampler):
 
     self_tuning = True
 
-    def init(self, target, position, generator=None, step_size=None, tuner=None):
+    def init(self, target, position, generator=None, step_size=None, tuner=None,
+             stream=None):
         C = position.shape[0]
         tune = (tuner or self.default_tuner()).init(
             per_chain_step(1.0, C, position.dtype, position.device))
@@ -73,7 +76,8 @@ class AM(Sampler):
             tune=tune,
         )
 
-    def step(self, state: AMState, target, generator=None, z=None, u=None, u_comp=None):
+    def step(self, state: AMState, target, generator=None, z=None, u=None, u_comp=None,
+             stream=None):
         """One transition for every chain.  ``z`` (the proposal's standard
         normal draw), ``u`` (the accept uniform) and ``u_comp`` (the mixture
         component's uniform) may be given to replay draws."""
@@ -92,10 +96,12 @@ class AM(Sampler):
         )
         cov = 0.5 * (cov + cov.mT)  # Hermitian-ise
 
+        if u_comp is None or z is None or u is None:
+            stream = step_stream(stream, generator, x)
         if u_comp is None:
-            u_comp = draw_uniform(x.shape[:1], x, generator)
+            u_comp = draw_uniform(stream, AM_COMPONENT, x.shape[:1], x)
         if z is None:
-            z = draw_normal(x, generator)
+            z = draw_normal(stream, PROPOSAL, x)
         eye = torch.eye(d, dtype=x.dtype, device=x.device)
         core_chol = cholesky_or_nan(self.corescale * cov + 1e-10 * eye)
         use_minor = u_comp < self.c
@@ -105,7 +111,7 @@ class AM(Sampler):
 
         lt_new = target.logdensity(x_new)
         ratio = lt_new - lt
-        accept = metropolis_accept(ratio, generator, u)
+        accept = metropolis_accept(ratio, stream, u)
         position = torch.where(accept[:, None], x_new, x)
         logtarget = torch.where(accept, lt_new, lt)
 

@@ -29,11 +29,13 @@ from klara_tpu_torch.distributions.core import (
     lognormalise_truncated_normal,
     truncated_standard_normal,
 )
+from klara_tpu_torch.ops.keyed import AMWG_ACCEPT, AMWG_PROPOSAL
 from klara_tpu_torch.samplers.base import (
     Info,
     Sampler,
     draw_normal,
     draw_uniform,
+    step_stream,
     tensor_like,
 )
 from klara_tpu_torch.tuners.tuners import RobertsRosenthalTuner, TuneState
@@ -58,7 +60,8 @@ class AMWG(Sampler):
     def _tuner(self):
         return RobertsRosenthalTuner(targetrate=self.targetrate, period=self.period)
 
-    def init(self, target, position, generator=None, step_size=None, tuner=None):
+    def init(self, target, position, generator=None, step_size=None, tuner=None,
+             stream=None):
         sigma0 = self.sigma0 if step_size is None else step_size
         logsigma0 = torch.log(tensor_like(sigma0, position)).expand(position.shape).contiguous()
         return AMWGState(position, target.logdensity(position),
@@ -69,20 +72,24 @@ class AMWG(Sampler):
         hi = tensor_like(math.inf if self.upper is None else self.upper, x)
         return lo.expand(x.shape), hi.expand(x.shape)
 
-    def step(self, state: AMWGState, target, generator=None, z=None, u=None):
+    def step(self, state: AMWGState, target, generator=None, z=None, u=None, stream=None):
         """One sweep for every chain.  ``z`` (C, D) replays the proposals'
         draws (standard normal where the sampler has no bounds, else the
         U(0, 1) draw that the truncated normal's inverse CDF maps) and ``u``
-        (C, D) the accept uniforms."""
+        (C, D) the accept uniforms; else each is one keyed (C, D) draw, the
+        coordinate its element index."""
         x, lt = state.position, state.logtarget
         d = x.shape[-1]
         bounded = self.lower is not None or self.upper is not None
         lo, hi = self._bounds(x)
         sigma = torch.exp(state.tune.step)
+        if z is None or u is None:
+            stream = step_stream(stream, generator, x)
         if z is None:
-            z = draw_uniform(x.shape, x, generator) if bounded else draw_normal(x, generator)
+            z = (draw_uniform(stream, AMWG_PROPOSAL, x.shape, x) if bounded
+                 else draw_normal(stream, AMWG_PROPOSAL, x))
         if u is None:
-            u = draw_uniform(x.shape, x, generator)
+            u = draw_uniform(stream, AMWG_ACCEPT, x.shape, x)
         logu = torch.log(u)
         acc_vec = torch.zeros_like(x)
 

@@ -2,11 +2,17 @@
 
 A sampler is a frozen dataclass of static hyper-parameters with
 
-    sampler.init(target, position, generator, step_size=None, tuner=None) -> state
-    sampler.step(state, target, generator)                               -> (state, Info)
+    sampler.init(target, position, generator, step_size=None, tuner=None, stream=None) -> state
+    sampler.step(state, target, generator, stream=None)                     -> (state, Info)
 
 where every state field and every ``Info`` field carries a leading chains
-axis.  Randomness comes from an explicit ``torch.Generator``.
+axis.  Every draw is a keyed draw (``ops.keyed``, kernel K2 on the card) at
+a site of the sampler's window (the offsets of ``ops.keyed``'s table), so a
+chain's numbers are a function of the run key, its global index, the step
+and the site: a rank draws exactly its own chains.  A job hands ``stream``
+(its run's stream at the step, in its window); called without one, a
+sampler keys a stream afresh from ``generator`` at each call
+(``step_stream``).
 """
 
 from __future__ import annotations
@@ -16,7 +22,8 @@ from typing import Any, NamedTuple
 
 import torch
 
-from klara_tpu_torch.parallel.mesh import draw_chains
+from klara_tpu_torch.ops.keyed import ACCEPT, FIXED_SITES, KeyedStream, check_device
+from klara_tpu_torch.parallel.mesh import active_block
 from klara_tpu_torch.tuners.tuners import Tuner, VanillaTuner
 
 
@@ -31,11 +38,12 @@ class Info(NamedTuple):
     extras: Any = ()
 
 
-def metropolis_accept(log_ratio, generator=None, u=None):
-    """Accept where log_ratio > log(u), u ~ U(0, 1) per chain; a NaN ratio
-    rejects.  ``u`` may be given (tests replay another package's draws)."""
+def metropolis_accept(log_ratio, stream=None, u=None):
+    """Accept where log_ratio > log(u), u ~ U(0, 1) per chain drawn from
+    ``stream`` at its ``ACCEPT`` site; a NaN ratio rejects.  ``u`` may be
+    given (tests replay another package's draws)."""
     if u is None:
-        u = draw_uniform(log_ratio.shape, log_ratio, generator)
+        u = draw_uniform(stream, ACCEPT, log_ratio.shape, log_ratio)
     return log_ratio > torch.log(u)
 
 
@@ -49,18 +57,35 @@ def accept_prob(log_ratio):
     return torch.clamp_max(torch.exp(torch.clamp_max(log_ratio, 0.0)), 1.0)
 
 
-def draw_normal(like, generator=None):
-    """N(0, 1) at ``like``'s shape (chains axis first), under the draw rule
-    of ``parallel.mesh.draw_chains``."""
-    return draw_chains(lambda s: torch.randn(s, generator=generator, device=like.device,
-                                             dtype=like.dtype), like.shape)
+def step_stream(stream, generator, like):
+    """The keyed stream a sampler draws from at one call: ``stream`` (a
+    job's, at the step and window it hands over), else one keyed afresh
+    from ``generator`` (one draw) over the chains of the batch-first
+    ``like``, at step 0 in MCJob's window; inside ``chain_context`` of a
+    split block those are the block's chains, named by their global
+    indices.  Either lies on ``like``'s device, or this raises."""
+    if stream is None:
+        block = active_block()
+        return KeyedStream.for_run(generator, like.device, like.shape[0],
+                                   0 if block is None else block.offset)
+    check_device("the stream", stream.device, like.device)
+    return stream
 
 
-def draw_uniform(shape, like, generator=None, chains_dim=0):
-    """U(0, 1) of ``shape`` whose chains axis is ``chains_dim``, under the
-    draw rule."""
-    return draw_chains(lambda s: torch.rand(s, generator=generator, device=like.device,
-                                            dtype=like.dtype), shape, chains_dim)
+def _keyed_dtype(dtype):
+    return dtype if dtype in (torch.float32, torch.float64) else torch.float32
+
+
+def draw_normal(stream, offset, like):
+    """N(0, 1) at ``like``'s shape (chains axis first) and dtype, from
+    ``stream`` at its window's ``offset``."""
+    return stream.window_site(offset).normal(like.shape, _keyed_dtype(like.dtype)).to(like.dtype)
+
+
+def draw_uniform(stream, offset, shape, like):
+    """U(0, 1) of ``shape`` (chains axis first) in ``like``'s dtype, from
+    ``stream`` at its window's ``offset``."""
+    return stream.window_site(offset).uniform(shape, _keyed_dtype(like.dtype)).to(like.dtype)
 
 
 def tensor_like(value, like):
@@ -121,18 +146,21 @@ def per_chain_step(step, C, dtype, device):
 class Sampler:
     """Base class. Subclasses define ``init`` and ``step``."""
 
-    def init(self, target, position, generator=None, step_size=None, tuner=None):
+    def init(self, target, position, generator=None, step_size=None, tuner=None, stream=None):
         raise NotImplementedError
 
-    def step(self, state, target, generator=None):
+    def step(self, state, target, generator=None, stream=None):
         raise NotImplementedError
 
     # statistic the tuner consumes: 'accept' (0/1) or 'accept_stat'
     tuner_statistic = "accept"
     # samplers with built-in adaptation make the job skip the tuner update
     self_tuning = False
-    # samplers whose step takes the run's keyed stream (``stream=``)
-    keyed = False
+
+    def keyed_sites(self, position) -> int:
+        """The site offsets a step of the (C, ...) ``position`` draws at:
+        the size its window must have."""
+        return FIXED_SITES
 
     def default_tuner(self) -> Tuner:
         return VanillaTuner()

@@ -16,7 +16,8 @@ from typing import NamedTuple
 import torch
 
 from klara_tpu_torch.models.graph import chain_sum
-from klara_tpu_torch.samplers.base import chain_view, draw_normal, per_chain_step
+from klara_tpu_torch.ops.keyed import INIT_MOMENTUM, MOMENTUM
+from klara_tpu_torch.samplers.base import chain_view, draw_normal, per_chain_step, step_stream
 from klara_tpu_torch.tuners.tuners import DualAveragingTuner
 
 
@@ -27,9 +28,10 @@ def hamiltonian(logtarget, momentum, inv_mass=None):
     return logtarget - 0.5 * chain_sum(inv_mass * torch.square(momentum))
 
 
-def sample_momentum(generator, position, inv_mass=None):
-    """p ~ N(0, M): z / sqrt(M⁻¹) for diagonal M."""
-    z = draw_normal(position, generator)
+def sample_momentum(stream, position, inv_mass=None):
+    """p ~ N(0, M): z / sqrt(M⁻¹) for diagonal M, z from ``stream`` at its
+    ``MOMENTUM`` site."""
+    z = draw_normal(stream, MOMENTUM, position)
     if inv_mass is None:
         return z
     return z * torch.rsqrt(inv_mass)
@@ -79,13 +81,16 @@ def leapfrog(target, pp: PhasePoint, eps, n_steps, inv_mass=None) -> PhasePoint:
 
 
 def find_reasonable_step_size(target, position, generator=None, max_iter=100,
-                              momentum=None):
+                              momentum=None, stream=None):
     """Per-chain heuristic ε: double or halve from 1 until the one-step
     acceptance probability crosses 0.5 (Hoffman-Gelman Algorithm 4), as a
-    masked batch loop.  ``momentum`` may be given (tests replay another
-    package's draws)."""
+    masked batch loop.  The momentum is drawn at the ``INIT_MOMENTUM`` site
+    of ``stream`` (``step_stream``: else of one keyed from ``generator``),
+    or given (tests replay another package's draws)."""
     lt, grad = target.logdensity_and_grad(position)
-    p0 = momentum if momentum is not None else draw_normal(position, generator)
+    p0 = momentum
+    if p0 is None:
+        p0 = draw_normal(step_stream(stream, generator, position), INIT_MOMENTUM, position)
     h0 = hamiltonian(lt, p0)
     eps = torch.ones(position.shape[0], dtype=position.dtype, device=position.device)
     start = PhasePoint(position, p0, lt, grad)
@@ -109,14 +114,15 @@ def find_reasonable_step_size(target, position, generator=None, max_iter=100,
 
 
 def init_tune(tuner, target, position, leapstep, generator=None, step_size=None,
-              momentum=None):
+              momentum=None, stream=None):
     """The tuner state a gradient sampler starts from: ε = ``step_size``
     if given (a number, or a per-chain (C,) tensor taken as is), else the
-    step-size search under dual averaging (``momentum`` feeds it; tests
-    replay draws), else ``leapstep``.  Dual averaging then sets its μ from
-    ε."""
+    step-size search under dual averaging (its momentum from ``stream`` or
+    ``generator``, or ``momentum``; tests replay draws), else ``leapstep``.
+    Dual averaging then sets its μ from ε."""
     if step_size is None and isinstance(tuner, DualAveragingTuner):
-        step0 = find_reasonable_step_size(target, position, generator, momentum=momentum)
+        step0 = find_reasonable_step_size(target, position, generator, momentum=momentum,
+                                          stream=stream)
     else:
         step0 = per_chain_step(leapstep if step_size is None else step_size,
                                position.shape[0], position.dtype, position.device)

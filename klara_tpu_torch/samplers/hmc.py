@@ -14,12 +14,14 @@ from typing import NamedTuple
 
 import torch
 
+from klara_tpu_torch.ops.keyed import JITTER
 from klara_tpu_torch.samplers.base import (
     Info,
     Sampler,
     chain_view,
     draw_uniform,
     metropolis_accept,
+    step_stream,
 )
 from klara_tpu_torch.samplers.hamiltonian import (
     PhasePoint,
@@ -33,9 +35,10 @@ from klara_tpu_torch.tuners.tuners import DualAveragingTuner, TuneState
 
 def jitter_fraction(u, jitter: float):
     """Map U(0, 1) draws to U(1-jitter, 1+jitter) with the JAX package's
-    arithmetic for a uniform in [lo, hi): u·(hi−lo) + lo, floored at lo."""
-    lo = torch.tensor(1.0 - jitter, dtype=u.dtype, device=u.device)
-    hi = torch.tensor(1.0 + jitter, dtype=u.dtype, device=u.device)
+    arithmetic for a uniform in [lo, hi): u·(hi−lo) + lo, floored at lo.
+    The bounds are 0-d fills on ``u``'s device: a copy from host memory
+    would make the host wait for the device at every step."""
+    lo, hi = (torch.full((), 1.0 + s * jitter, dtype=u.dtype, device=u.device) for s in (-1, 1))
     return torch.maximum(lo, u * (hi - lo) + lo)
 
 
@@ -81,11 +84,11 @@ class HMC(Sampler):
         return self.nleaps * self.leapstep if lam is None else lam
 
     def init(self, target, position, generator=None, step_size=None, tuner=None,
-             momentum=None):
+             momentum=None, stream=None):
         """``momentum`` feeds the step-size search (tests replay draws)."""
         lt, grad = target.logdensity_and_grad(position)
         tune = init_tune(tuner or self.default_tuner(), target, position, self.leapstep,
-                         generator, step_size, momentum)
+                         generator, step_size, momentum, stream)
         C = position.shape[0]
         kw = dict(dtype=position.dtype, device=position.device)
         return HMCState(
@@ -95,37 +98,40 @@ class HMC(Sampler):
             traj_v=torch.zeros(C, **kw),
         )
 
-    def _nleaps(self, eps, log_traj, generator=None, jitter_u=None):
+    def _nleaps(self, eps, log_traj, stream=None, jitter_u=None):
         """Per-chain leap counts (C,) int32 and the realised jitter fraction."""
         ones = torch.ones_like(eps)
         if not self.dynamic_nleaps:
             return torch.full(eps.shape, self.nleaps, dtype=torch.int32, device=eps.device), ones
         lam = torch.exp(log_traj)
         frac = ones
-        if self.jitter > 0.0 and (generator is not None or jitter_u is not None):
-            u = jitter_u if jitter_u is not None else draw_uniform(eps.shape, eps, generator)
+        if self.jitter > 0.0:
+            u = jitter_u if jitter_u is not None else draw_uniform(stream, JITTER, eps.shape, eps)
             frac = jitter_fraction(u, self.jitter)
             lam = lam * frac
         n = torch.round(lam / eps).to(torch.int32)
         return torch.clamp(n, 1, self.max_nleaps), frac
 
     def step(self, state: HMCState, target, generator=None, momentum=None, u=None,
-             jitter_u=None):
+             jitter_u=None, stream=None):
         """One HMC transition for every chain.  ``momentum``, ``u`` (the
         accept uniform) and ``jitter_u`` may be given to replay draws."""
         x, lt, grad = state.position, state.logtarget, state.gradlogtarget
         eps = state.tune.step
         inv_mass = state.inv_mass
+        jittered = self.dynamic_nleaps and self.jitter > 0.0
+        if momentum is None or u is None or (jittered and jitter_u is None):
+            stream = step_stream(stream, generator, x)
 
-        nleaps, frac = self._nleaps(eps, state.log_traj, generator, jitter_u)
-        p0 = momentum if momentum is not None else sample_momentum(generator, x, inv_mass)
+        nleaps, frac = self._nleaps(eps, state.log_traj, stream, jitter_u)
+        p0 = momentum if momentum is not None else sample_momentum(stream, x, inv_mass)
         h0 = hamiltonian(lt, p0, inv_mass)
         pp = leapfrog(target, PhasePoint(x, p0, lt, grad), eps, nleaps, inv_mass)
         h1 = hamiltonian(pp.logtarget, pp.momentum, inv_mass)
         ratio = h1 - h0
         ratio = torch.where(torch.isnan(ratio), torch.full_like(ratio, -math.inf), ratio)
 
-        accept = metropolis_accept(ratio, generator, u)
+        accept = metropolis_accept(ratio, stream, u)
         acc = chain_view(accept, x)
         new_state = state._replace(
             position=torch.where(acc, pp.position, x),

@@ -19,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from klara_tpu_torch.models.graph import chain_sum
+from klara_tpu_torch.ops.keyed import PROPOSAL
 from klara_tpu_torch.samplers.base import (
     Info,
     Sampler,
@@ -27,6 +28,7 @@ from klara_tpu_torch.samplers.base import (
     draw_normal,
     metropolis_accept,
     per_chain_step,
+    step_stream,
 )
 from klara_tpu_torch.tuners.tuners import TuneState
 
@@ -42,21 +44,24 @@ class MALAState(NamedTuple):
 class MALA(Sampler):
     driftstep: float = 1.0
 
-    def init(self, target, position, generator=None, step_size=None, tuner=None):
+    def init(self, target, position, generator=None, step_size=None, tuner=None,
+             stream=None):
         lt, grad = target.logdensity_and_grad(position)
         step0 = per_chain_step(self.driftstep if step_size is None else step_size,
                                position.shape[0], position.dtype, position.device)
         return MALAState(position, lt, grad, (tuner or self.default_tuner()).init(step0))
 
-    def step(self, state: MALAState, target, generator=None, z=None, u=None):
+    def step(self, state: MALAState, target, generator=None, z=None, u=None, stream=None):
         """One MALA transition for every chain.  ``z`` (the proposal's
         standard normal draw) and ``u`` (the accept uniform) may be given to
         replay draws."""
         x, lt, grad = state.position, state.logtarget, state.gradlogtarget
         eps_c = state.tune.step
         eps = chain_view(eps_c, x)
+        if z is None or u is None:
+            stream = step_stream(stream, generator, x)
         if z is None:
-            z = draw_normal(x, generator)
+            z = draw_normal(stream, PROPOSAL, x)
 
         mu = x + 0.5 * eps * grad
         x_new = mu + torch.sqrt(eps) * z
@@ -67,7 +72,7 @@ class MALA(Sampler):
             return -chain_sum(torch.square(v - m)) / (2.0 * eps_c)
 
         ratio = lt_new - lt + lognorm(x, mu_rev) - lognorm(x_new, mu)
-        accept = metropolis_accept(ratio, generator, u)
+        accept = metropolis_accept(ratio, stream, u)
         acc = chain_view(accept, x)
         logtarget = torch.where(accept, lt_new, lt)
         new_state = MALAState(

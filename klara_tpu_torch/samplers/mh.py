@@ -5,15 +5,16 @@ Positions are (C, ...).  The random walk proposes x' = x + step·σ·z with
 z ~ N(0, I) per chain, where σ is a scalar, a per-coordinate vector or a
 lower Cholesky factor (matrix, applied to each row as σ z).  A general
 proposal is ``proposal_fn(x, step) -> Distribution`` over the (C, ...)
-batch, with ``step`` the (C,) tuned scale, drawn once per chain from a
-keyed stream (``ops.keyed``, kernel K2 on the card) at counter (step,
-``MH_SITE``), so on a mesh a rank draws only its own chains.  ``MCJob``
-owns the stream: it keys one per ``run`` or ``resume`` from the generator
-and hands it to ``step`` at each step's index.  Called without one
-(directly, or as a Gibbs job's nested sampler) ``step`` keys a fresh
-stream from the generator at every step.  The proposal's ``sample`` is
-handed the stream, not a ``torch.Generator`` (see
-``distributions.core.Distribution.sample``).  Asymmetric proposals add
+batch, with ``step`` the (C,) tuned scale, drawn once per chain.  Every
+draw is keyed (``ops.keyed``, kernel K2 on the card): the proposal (the
+walk's normal, or the proposal distribution's draw) at the window's
+``PROPOSAL`` site, which is ``MH_SITE`` in ``MCJob``'s window, and the
+accept uniform at ``ACCEPT``.  ``MCJob`` keys the stream once per ``run``,
+``resume`` or ``run_phased`` from the generator and hands it to ``step`` at
+each step's index, a nested Gibbs block at its sweep in its own window;
+called without one, ``step`` keys a fresh stream from the generator at
+every call.  The proposal's ``sample`` is handed the stream, not a
+``torch.Generator`` (see ``distributions.core.Distribution.sample``).  Asymmetric proposals add
 logpdf(q(x'→x)) − logpdf(q(x→x')), summed per chain, and proposals whose
 logpdf omits its normaliser add the normalisers' difference as well.
 """
@@ -27,8 +28,7 @@ import torch
 
 from klara_tpu_torch.distributions.core import draw_per_chain
 from klara_tpu_torch.models.graph import chain_sum
-from klara_tpu_torch.ops.keyed import MH_SITE, KeyedStream, check_device
-from klara_tpu_torch.parallel.mesh import active_block
+from klara_tpu_torch.ops.keyed import PROPOSAL
 from klara_tpu_torch.samplers.base import (
     Info,
     Sampler,
@@ -37,6 +37,7 @@ from klara_tpu_torch.samplers.base import (
     draw_normal,
     metropolis_accept,
     per_chain_step,
+    step_stream,
 )
 from klara_tpu_torch.tuners.tuners import TuneState
 
@@ -59,13 +60,8 @@ class MH(Sampler):
     # then takes from `proposal.lognormaliser()`
     normalised: bool = True
 
-    @property
-    def keyed(self) -> bool:
-        """Whether ``step`` draws from a keyed stream (a proposal
-        distribution), which a job then hands it."""
-        return self.proposal_fn is not None
-
-    def init(self, target, position, generator=None, step_size=None, tuner=None):
+    def init(self, target, position, generator=None, step_size=None, tuner=None,
+             stream=None):
         """``step_size`` (a number or a (C,) tensor) starts the tuned scale
         (default 1); it stays floating for integer positions."""
         f = position.dtype if position.is_floating_point() else torch.float32
@@ -86,27 +82,21 @@ class MH(Sampler):
         """One MH transition for every chain.  ``z`` (the proposal's
         standard draw) and ``u`` (the accept uniform) may be given to replay
         draws.  ``stream`` is the run's keyed stream at this step (None: a
-        fresh one from ``generator``); its site is set here."""
+        fresh one from ``generator``); the sites are set here."""
         x, lt = state.position, state.logtarget
         scale = state.tune.step
+        if z is None or u is None:
+            stream = step_stream(stream, generator, x)
 
         if self.proposal_fn is None:
             if z is None:
-                z = draw_normal(x, generator)
+                z = draw_normal(stream, PROPOSAL, x)
             x_new = self._propose(x, scale, z)
             ratio = target.logdensity(x_new) - lt
             lt_new = ratio + lt
         else:
             fwd = self.proposal_fn(x, scale)
-            if z is None:
-                if stream is None:
-                    block = active_block()
-                    stream = KeyedStream.for_run(generator, x.device, x.shape[0],
-                                                 0 if block is None else block.offset)
-                check_device("the stream", stream.device, x.device)
-                x_new = draw_per_chain(fwd, x, stream.at(site=MH_SITE))
-            else:
-                x_new = draw_per_chain(fwd, x, generator, z)
+            x_new = draw_per_chain(fwd, x, stream.window_site(PROPOSAL) if z is None else None, z)
             lt_new = target.logdensity(x_new)
             ratio = lt_new - lt
             if not self.symmetric:
@@ -117,7 +107,7 @@ class MH(Sampler):
                         rev.lognormaliser()
                     )
 
-        accept = metropolis_accept(ratio, generator, u)
+        accept = metropolis_accept(ratio, stream, u)
         acc = chain_view(accept, x)
         position = torch.where(acc, x_new, x)
         logtarget = torch.where(accept, lt_new, lt)

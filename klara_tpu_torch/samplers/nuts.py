@@ -19,7 +19,9 @@ package's two tree forms, each run for the whole (C, D) batch of chains:
     doubling after the first.
 
 The random draws of a step may be passed in (``NUTSDraws``) to replay
-another package's stream; by default they come from the generator.  Where
+another package's stream; by default they are keyed draws (two: the
+momentum, and every uniform of the step in one (C, 1 + 2J + 2^J − 1) draw),
+which both tree forms read alike.  Where
 an arithmetic result decides a discrete outcome (leaf take, doubling swap,
 divergence, the slice) the JAX package's f32 formula is copied.
 """
@@ -32,7 +34,8 @@ from typing import NamedTuple
 import torch
 
 from klara_tpu_torch.models.graph import chain_sum
-from klara_tpu_torch.samplers.base import Info, Sampler, chain_view, draw_uniform
+from klara_tpu_torch.ops.keyed import NUTS_UNIFORMS
+from klara_tpu_torch.samplers.base import Info, Sampler, chain_view, draw_uniform, step_stream
 from klara_tpu_torch.samplers.hamiltonian import (
     PhasePoint,
     hamiltonian,
@@ -126,31 +129,36 @@ class NUTS(Sampler):
         return self.tree_impl == "static"
 
     def init(self, target, position, generator=None, step_size=None, tuner=None,
-             momentum=None):
+             momentum=None, stream=None):
         """``momentum`` feeds the step-size search (tests replay draws)."""
         lt, grad = target.logdensity_and_grad(position)
         tune = init_tune(tuner or self.default_tuner(), target, position, self.leapstep,
-                         generator, step_size, momentum)
+                         generator, step_size, momentum, stream)
         return NUTSState(position, lt, grad, torch.ones_like(position), tune)
 
-    def draws(self, generator, state: NUTSState) -> NUTSDraws:
-        """One step's draws from ``generator``."""
+    def draws(self, generator, state: NUTSState, stream=None) -> NUTSDraws:
+        """One step's draws from ``stream`` (``step_stream``: else from one
+        keyed from ``generator``): the momentum at its ``MOMENTUM`` site and
+        the slice, direction, swap and take uniforms as the columns of one
+        (C, 1 + 2J + 2^J − 1) draw at ``NUTS_UNIFORMS``."""
         x = state.position
+        stream = step_stream(stream, generator, x)
         J, C = self.max_doublings, x.shape[0]
+        u = draw_uniform(stream, NUTS_UNIFORMS, (C, 2 * J + (1 << J)), x).T.contiguous()
         return NUTSDraws(
-            momentum=sample_momentum(generator, x, state.inv_mass),
-            slice_u=draw_uniform((C,), x, generator),
-            direction=draw_uniform((J, C), x, generator, chains_dim=1) < 0.5,
-            swap_u=draw_uniform((J, C), x, generator, chains_dim=1),
-            take_u=draw_uniform(((1 << J) - 1, C), x, generator, chains_dim=1),
+            momentum=sample_momentum(stream, x, state.inv_mass),
+            slice_u=u[0],
+            direction=u[1:1 + J] < 0.5,
+            swap_u=u[1 + J:1 + 2 * J],
+            take_u=u[1 + 2 * J:],
         )
 
     # --------------------------------------------------------------- step
-    def step(self, state: NUTSState, target, generator=None, draws=None):
+    def step(self, state: NUTSState, target, generator=None, draws=None, stream=None):
         """One NUTS transition for every chain; ``draws`` may be given to
         replay another stream."""
         if draws is None:
-            draws = self.draws(generator, state)
+            draws = self.draws(generator, state, stream)
         if self._use_static():
             return self._step_static(state, target, draws)
         return self._step_looped(state, target, draws)

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from klara_tpu_torch.ops.keyed import PROPOSAL
 from klara_tpu_torch.samplers.base import (
     Info,
     Sampler,
@@ -28,6 +29,7 @@ from klara_tpu_torch.samplers.base import (
     metropolis_accept,
     per_chain_step,
     scale_matrix,
+    step_stream,
 )
 from klara_tpu_torch.tuners.tuners import TuneState
 
@@ -48,7 +50,8 @@ class RAM(Sampler):
 
     self_tuning = True
 
-    def init(self, target, position, generator=None, step_size=None, tuner=None):
+    def init(self, target, position, generator=None, step_size=None, tuner=None,
+             stream=None):
         C = position.shape[0]
         tune = (tuner or self.default_tuner()).init(
             per_chain_step(1.0, C, position.dtype, position.device))
@@ -60,19 +63,21 @@ class RAM(Sampler):
             tune,
         )
 
-    def step(self, state: RAMState, target, generator=None, z=None, u=None):
+    def step(self, state: RAMState, target, generator=None, z=None, u=None, stream=None):
         """One transition for every chain; ``z`` and ``u`` may be given to
         replay draws."""
         x, lt, S = state.position, state.logtarget, state.S
         f, d = x.dtype, x.shape[-1]
         count = state.count + 1
+        if z is None or u is None:
+            stream = step_stream(stream, generator, x)
         if z is None:
-            z = draw_normal(x, generator)
+            z = draw_normal(stream, PROPOSAL, x)
 
         x_new = x + (S @ z[..., None])[..., 0]
         lt_new = target.logdensity(x_new)
         ratio = lt_new - lt
-        accept = metropolis_accept(ratio, generator, u)
+        accept = metropolis_accept(ratio, stream, u)
         position = torch.where(accept[:, None], x_new, x)
         logtarget = torch.where(accept, lt_new, lt)
 

@@ -13,9 +13,10 @@ slice.  The chains run in lockstep under a per-chain ``alive`` mask: a loop
 runs while any chain is alive and a finished chain's interval is frozen, so
 a chain's k-th shrink draw is the k-th draw of the loop.  Each loop
 iteration evaluates the log-density of the whole batch and reads one flag
-back from the device; ``HOST_READS`` counts those reads.  The shrinkage
-draws inside its loop, so on a chains mesh its flag is taken across the
-ranks (every rank draws as often as the one process would).
+back from the device; ``HOST_READS`` counts those reads.  The k-th shrink
+draw of coordinate i is keyed at its own site (``ops.keyed``: offset
+``FIXED_SITES`` + i·``max_shrinks`` + k), so on a chains mesh a rank's loop
+runs as long as its own chains need and issues no collective.
 """
 
 from __future__ import annotations
@@ -25,12 +26,13 @@ from typing import NamedTuple
 
 import torch
 
-from klara_tpu_torch.parallel.mesh import any_over_chains
+from klara_tpu_torch.ops.keyed import FIXED_SITES, SLICE_INTERVAL, SLICE_LEVEL
 from klara_tpu_torch.samplers.base import (
     Info,
     Sampler,
     draw_uniform,
     per_chain_step,
+    step_stream,
     tensor_like,
 )
 from klara_tpu_torch.tuners.tuners import TuneState
@@ -39,10 +41,10 @@ from klara_tpu_torch.tuners.tuners import TuneState
 HOST_READS = 0
 
 
-def _any(mask, across_ranks=False) -> bool:
+def _any(mask) -> bool:
     global HOST_READS
     HOST_READS += 1
-    return any_over_chains(mask) if across_ranks else bool(mask.any())
+    return bool(mask.any())
 
 
 class SliceState(NamedTuple):
@@ -66,10 +68,14 @@ class SliceSampler(Sampler):
     max_stepouts: int = 100
     max_shrinks: int = 100
 
-    def init(self, target, position, generator=None, step_size=None, tuner=None):
+    def init(self, target, position, generator=None, step_size=None, tuner=None,
+             stream=None):
         tune = (tuner or self.default_tuner()).init(
             per_chain_step(1.0, position.shape[0], position.dtype, position.device))
         return SliceState(position, target.logdensity(position), tune)
+
+    def keyed_sites(self, position) -> int:
+        return FIXED_SITES + position.shape[-1] * self.max_shrinks
 
     def _step_out(self, lt_at, end, w, logu):
         """Move ``end`` by ``w`` while it lies inside the slice, per chain."""
@@ -81,7 +87,7 @@ class SliceSampler(Sampler):
             alive = alive & (lt_at(end) > logu)
         return end
 
-    def step(self, state: SliceState, target, generator=None, draws=None):
+    def step(self, state: SliceState, target, generator=None, draws=None, stream=None):
         """One sweep over the coordinates for every chain; ``draws`` (a
         ``SliceDraws``) may be given to replay another stream."""
         x, lt = state.position, state.logtarget
@@ -89,8 +95,9 @@ class SliceSampler(Sampler):
         C, d = x.shape
         widths = tensor_like(self.widths, x).expand(d)
         if draws is None:
-            slice_u = draw_uniform((C, d), x, generator)
-            interval_u = draw_uniform((C, d), x, generator)
+            stream = step_stream(stream, generator, x)
+            slice_u = draw_uniform(stream, SLICE_LEVEL, (C, d), x)
+            interval_u = draw_uniform(stream, SLICE_INTERVAL, (C, d), x)
         else:
             slice_u, interval_u = draws.slice_u, draws.interval_u
 
@@ -114,9 +121,9 @@ class SliceSampler(Sampler):
             accepted = torch.zeros(C, dtype=torch.bool, device=x.device)
             alive = ~accepted
             it = 0
-            while it < self.max_shrinks and _any(alive, across_ranks=True):
-                uk = (draw_uniform((C,), x, generator) if draws is None
-                      else draws.shrink_u[:, i, it])
+            while it < self.max_shrinks and _any(alive):
+                uk = (draw_uniform(stream, FIXED_SITES + i * self.max_shrinks + it, (C,), x)
+                      if draws is None else draws.shrink_u[:, i, it])
                 new = left + uk * (right - left)
                 ok = lt_at(new) > logu
                 left = torch.where(alive & ~ok & (new < xi), new, left)

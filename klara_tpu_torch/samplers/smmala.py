@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional, Union
 
 import torch
 
+from klara_tpu_torch.ops.keyed import PROPOSAL
 from klara_tpu_torch.samplers.base import (
     Info,
     Sampler,
@@ -33,6 +34,7 @@ from klara_tpu_torch.samplers.base import (
     inverse_or_nan,
     metropolis_accept,
     per_chain_step,
+    step_stream,
 )
 from klara_tpu_torch.stats.metrics import softabs
 from klara_tpu_torch.tuners.tuners import TuneState
@@ -76,21 +78,24 @@ class SMMALA(Sampler):
         Ginv = inverse_or_nan(G + 1e-10 * eye)
         return lt, grad, G, Ginv, _matvec(Ginv, grad)
 
-    def init(self, target, position, generator=None, step_size=None, tuner=None):
+    def init(self, target, position, generator=None, step_size=None, tuner=None,
+             stream=None):
         step0 = per_chain_step(self.driftstep if step_size is None else step_size,
                                position.shape[0], position.dtype, position.device)
         tune = (tuner or self.default_tuner()).init(step0)
         return SMMALAState(position, *self._derivs(target, position), tune)
 
-    def step(self, state: SMMALAState, target, generator=None, z=None, u=None):
+    def step(self, state: SMMALAState, target, generator=None, z=None, u=None, stream=None):
         """One transition for every chain; ``z`` and ``u`` may be given to
         replay draws."""
         x, lt = state.position, state.logtarget
         eps = state.tune.step
         eps_v, eps_m = eps[:, None], eps[:, None, None]
         eye = torch.eye(x.shape[-1], dtype=x.dtype, device=x.device)
+        if z is None or u is None:
+            stream = step_stream(stream, generator, x)
         if z is None:
-            z = draw_normal(x, generator)
+            z = draw_normal(stream, PROPOSAL, x)
 
         mu = x + 0.5 * eps_v * state.firstterm
         chol_inv = cholesky_or_nan(state.invtensor + 1e-10 * eye)
@@ -110,7 +115,7 @@ class SMMALA(Sampler):
             _logdet(eps_m * Ginv_new) + (diff_rev * _matvec(G_new, diff_rev)).sum(-1) / eps
         )
         ratio = torch.where(torch.isnan(ratio), -torch.inf, ratio)
-        accept = metropolis_accept(ratio, generator, u)
+        accept = metropolis_accept(ratio, stream, u)
 
         def pick(new, old):
             return torch.where(accept.view((-1,) + (1,) * (new.dim() - 1)), new, old)

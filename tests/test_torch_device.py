@@ -141,6 +141,7 @@ def test_a_prior_draw_decides_the_device_like_any_tensor(no_card):
                        prior=kt.distributions.Normal(0.0, 1.0))
     job = kt.MCJob(target, kt.HMC(leapstep=0.1, nleaps=2), kt.MCRange(n_steps=5, burnin=2),
                    n_chains=3)
-    x0 = job._prepare_x0(torch.Generator().manual_seed(0), None)
+    gen = torch.Generator().manual_seed(0)
+    x0 = job._prepare_x0(job._run_stream(gen, job._run_device(gen, None)), None)
     assert x0.device.type == "cpu" and tuple(x0.shape) == (3, 2)
     assert job.run(torch.Generator().manual_seed(0)).value.device.type == "cpu"

@@ -178,7 +178,6 @@ def test_mh_proposal_distribution_draws_from_its_keyed_stream():
 
     _, tt = _targets()
     sampler = kt.MH(proposal_fn=lambda x, s: td.Normal(x, 0.5 * s[:, None]), symmetric=False)
-    assert sampler.keyed and not kt.MH().keyed
     state = sampler.init(tt, torch.zeros(C, D))
     assert state._fields == ("position", "logtarget", "tune")
     stream = KeyedStream(run_key(torch.Generator().manual_seed(3), "cpu"), C)
@@ -186,6 +185,10 @@ def test_mh_proposal_distribution_draws_from_its_keyed_stream():
     proposal = 0.5 * stream.at(step=5, site=MH_SITE).normal((C, D))
     assert bool(info.accept.any())
     torch.testing.assert_close(s1.position[info.accept], proposal[info.accept], rtol=0, atol=0)
+    # the random walk's normal is drawn at the same site
+    walk, info = kt.MH(0.5).step(state, tt, stream=stream.at(step=5))
+    assert bool(info.accept.any())
+    torch.testing.assert_close(walk.position[info.accept], proposal[info.accept], rtol=0, atol=0)
 
     s2, info = sampler.step(state, tt, torch.Generator().manual_seed(9))
     key = run_key(torch.Generator().manual_seed(9), "cpu")

@@ -6,14 +6,17 @@ Counterparts of tests/test_parallel.py (the graft dry run is not ported)
 and of tests/test_hardening.py::test_resume_under_mesh, plus the port's own
 rules:
 
-* the draw rule and the keyed stream: two ranks against one process, bit
-  for bit, for every draw site (MALA, HMC with the shared jitter, NUTS's
-  (J, C) draws, MH with a random walk and with a proposal distribution, the
-  slice sampler's in-loop draws, the rats Gibbs conditionals with their
-  gamma draws, the prior-drawn x0), and generators seeded differently
-  raise; a Gibbs job and an MH proposal distribution on two ranks carry
-  each rank's block only and issue no collective but the run's generator
-  check;
+* the keyed streams (every draw of ``MCJob`` and ``GibbsJob``): two ranks
+  against one process, bit for bit, for every sampler (HMC with the shared
+  and the per-chain jitter, NUTS's two tree forms, MALA, SMMALA, MH with a
+  random walk and with a proposal distribution, RAM, AM, AMWG, the slice
+  sampler's in-loop draws, ARS, the prior-drawn x0) and the rats Gibbs
+  conditionals with their gamma draws; each rank draws exactly its own
+  chains' elements and issues no collective but the run's generator check,
+  and generators seeded differently raise;
+* csv output on two ranks: ``MCJob``'s stream (across a ``resume``) and
+  its ``'post'`` mode, and a Gibbs job's csv variables (across a
+  ``resume``) write the one process's files byte for byte;
 * the statistics of a meshed chain: global on every rank, with the
   elements each one all-gathers counted (per-chain results, not draws,
   except the rank-normalised ones);
@@ -183,36 +186,71 @@ def s_resume(rank, meshes):
             "from_global": from_global.value}
 
 
+def _drawn_elements(fn):
+    """``fn()`` and the elements of every keyed draw it made, with the first
+    chain and the chain count of each draw's stream."""
+    from klara_tpu_torch.ops import keyed
+
+    seen, plain = [], keyed.draws_reference
+
+    def record(stream, mode, shape, dtype, p0=None, p1=None):
+        seen.append((stream.offset, stream.chains, int(np.prod(shape))))
+        return plain(stream, mode, shape, dtype, p0, p1)
+
+    keyed.draws_reference = record
+    try:
+        return fn(), seen
+    finally:
+        keyed.draws_reference = plain
+
+
+DA = dict(tuner=kt.DualAveragingTuner(0.8, 10))
+# every sampler of MCJob: (sampler, job keywords, steps, burnin)
+DRAW_SITES = {
+    "hmc_shared_jitter": (kt.HMC(leapstep=0.1, nleaps=5, jitter=0.5, jitter_style="step"), DA,
+                          20, 10),
+    "hmc_chain_jitter": (kt.HMC(leapstep=0.1, nleaps=5, jitter=0.5, jitter_style="chain"), DA,
+                         20, 10),
+    "nuts": (kt.NUTS(max_doublings=3), {}, 10, 5),
+    "nuts_looped": (kt.NUTS(max_doublings=3, tree_impl="looped"), DA, 10, 5),
+    "mala": (kt.MALA(0.8), {}, 20, 5),
+    "smmala": (kt.SMMALA(0.5), {}, 10, 5),
+    "mh": (kt.MH(sigma=1.0), {}, 20, 5),
+    "mh_proposal": (None, {}, 20, 5),
+    "ram": (kt.RAM(), {}, 20, 5),
+    "am": (kt.AM(t0=5), {}, 20, 5),
+    "amwg": (kt.AMWG(lower=-3.0, upper=3.0), {}, 10, 5),
+    "slice": (kt.SliceSampler(), {}, 5, 2),
+    "ars": (kt.ARS(logproposal=lambda x: -0.125 * (x * x).sum(-1), proposalscale=0.0), {}, 20,
+            5),
+    "prior_x0": (kt.MH(), {}, 20, 5),
+}
+
+
 def s_draw_sites(rank, meshes):
-    """A few steps of every draw site, meshed and not."""
+    """A few steps of every sampler, meshed and not, with each run's keyed
+    draws' elements."""
     from klara_tpu_torch.distributions import LogNormal, Normal
     from klara_tpu_torch.models.examples import rats_gibbs_model
 
     gamma_target = kt.Target(logdensity_fn=lambda x: (torch.log(x) - x).sum(-1), dim=1)
     prior_target = kt.Target(logdensity_fn=lambda x: -0.5 * (x * x).sum(-1), dim=3,
                              prior=Normal(0.0, 2.0))
-    jobs = {
-        "hmc_shared_jitter": (_std_target(), kt.HMC(leapstep=0.1, nleaps=5, jitter=0.5,
-                                                    jitter_style="step"),
-                              dict(tuner=kt.DualAveragingTuner(0.8, 10)), 20, 10),
-        "nuts": (_std_target(), kt.NUTS(max_doublings=3), {}, 10, 5),
-        "mh": (_std_target(), kt.MH(sigma=1.0), {}, 20, 5),
-        # an asymmetric proposal distribution, drawn from the keyed stream
-        "mh_proposal": (gamma_target, kt.MH(
-            proposal_fn=lambda x, s: LogNormal(torch.log(x), 0.5 * s[:, None]),
-            symmetric=False), {}, 20, 5),
-        "slice": (_std_target(), kt.SliceSampler(), {}, 5, 2),
-        "prior_x0": (prior_target, kt.MH(), {}, 20, 5),
-    }
+    # an asymmetric proposal distribution
+    proposal = kt.MH(proposal_fn=lambda x, s: LogNormal(torch.log(x), 0.5 * s[:, None]),
+                     symmetric=False)
     out = {}
-    for name, (target, sampler, kw, n, burnin) in jobs.items():
+    for name, (sampler, kw, n, burnin) in DRAW_SITES.items():
+        target = {"mh_proposal": gamma_target, "prior_x0": prior_target}.get(name, _std_target())
+
         def run(mesh):
-            job = kt.MCJob(target, sampler, kt.MCRange(n_steps=n, burnin=burnin), n_chains=16,
-                           mesh=mesh, device="cpu", **kw)
+            job = kt.MCJob(target, sampler or proposal, kt.MCRange(n_steps=n, burnin=burnin),
+                           n_chains=16, mesh=mesh, device="cpu", **kw)
             x0 = {"prior_x0": None, "mh_proposal": torch.ones(1)}.get(name, torch.zeros(2))
-            chain, collectives = _collectives_of(lambda: job.run(_gen(11), x0))
+            (chain, collectives), drawn = _drawn_elements(
+                lambda: _collectives_of(lambda: job.run(_gen(11), x0)))
             return {"value": chain.value, "collectives": collectives,
-                    "position": tuple(chain.final_state.position.shape)}
+                    "position": tuple(chain.final_state.position.shape), "drawn": drawn}
 
         out[name] = _meshed_and_single(rank, meshes["chains"], run)
 
@@ -396,13 +434,47 @@ def s_mesh2d(rank, meshes):
     return {"names": tuple(m.mesh_dim_names), "shape": tuple(m.mesh.shape), "raised": raised}
 
 
+def _dir_bytes(path):
+    """{file name: bytes} of every file under ``path``."""
+    return {os.path.relpath(os.path.join(d, f), path): open(os.path.join(d, f), "rb").read()
+            for d, _, files in os.walk(path) for f in files}
+
+
 def s_csv(rank, meshes):
-    try:
-        kt.MCJob(_std_target(), kt.MALA(0.5), n_chains=16, destination="csv",
-                 filepath="unused", mesh=meshes["chains"])
-    except NotImplementedError as e:
-        return {"raised": str(e)}
-    return {"raised": None}
+    """csv output on the two-rank mesh and, on rank 0, in one process: the
+    MCJob stream across a ``resume`` (chunks of 7 that do not divide the
+    run), its ``'post'`` mode, and a Gibbs job's csv variable across a
+    ``resume``; rank 0 reads back every file, rank 1 reports its writers."""
+    def mcjob(mesh, path, mode):
+        job = kt.MCJob(_std_target(), kt.MALA(0.5), kt.MCRange(n_steps=40, burnin=10,
+                                                                thinning=2),
+                       n_chains=16, destination="csv", filepath=path, stream_chunk=7,
+                       stream_mode=mode, mesh=mesh, device="cpu")
+        chain = job.run(_gen(8), torch.zeros(2))
+        if mode == "io_callback":
+            job.resume(_gen(9), chain)
+        return job._writer is not None
+
+    def gibbs(mesh, path):
+        v0 = {"rho": torch.tensor(0.8), "p1": 0.0, "p2": 0.0}
+        job = kt.GibbsJob(_bivariate(), {}, kt.MCRange(n_steps=30, burnin=10), n_chains=16,
+                          outopts={"p1": {"destination": "csv", "filepath": path}},
+                          stream_chunk=7, mesh=mesh, device="cpu")
+        job.resume(_gen(4), job.run(_gen(3), v0), v0)
+        return bool(job._writers)
+
+    runs = {"mcjob_stream": lambda m, p: mcjob(m, p, "io_callback"),
+            "mcjob_post": lambda m, p: mcjob(m, p, "post"), "gibbs": gibbs}
+    out = {}
+    for name, fn in runs.items():
+        path = os.path.join(WORKER_DIR, "csv", name)
+        rec = {"writes": fn(meshes["chains"], os.path.join(path, "meshed"))}
+        if rank == 0:
+            fn(None, os.path.join(path, "single"))
+            rec["meshed"] = _dir_bytes(os.path.join(path, "meshed"))
+            rec["single"] = _dir_bytes(os.path.join(path, "single"))
+        out[name] = rec
+    return out
 
 
 def s_param_target(rank, meshes):
@@ -461,11 +533,16 @@ SCENARIOS = {
 }
 
 
+WORKER_DIR = None  # a worker's output directory, shared by its ranks
+
+
 def worker(rank: int, world: int, init_file: str, out_dir: str) -> None:
     import torch.distributed as dist
 
     from klara_tpu_torch.parallel import initialize_distributed
 
+    global WORKER_DIR
+    WORKER_DIR = out_dir
     torch.set_num_threads(1)
     initialize_distributed("file://" + init_file, world, rank, device="cpu")
     meshes = _meshes(world)
@@ -657,21 +734,37 @@ def test_resume_under_mesh(two):
         torch.testing.assert_close(part["from_global"], part["resumed"], rtol=0, atol=0)
 
 
-# ------------------------------------------------------------ the draw rule
-@pytest.mark.parametrize("site", ["hmc_shared_jitter", "nuts", "mh", "mh_proposal", "slice",
-                                  "prior_x0"])
+# ------------------------------------------------------- the keyed streams
+@pytest.mark.parametrize("site", sorted(DRAW_SITES))
 def test_draw_rule_two_ranks_equal_one_process(two, site):
+    """Every sampler's trace on two ranks is the one process's bit for bit,
+    and its draws issue no collective: only the run's generator check."""
     parts = [p[site] for p in _part(two, "draw_sites")]
     got = torch.cat([p["meshed"]["value"] for p in parts], 1)
     torch.testing.assert_close(got, parts[0]["single"]["value"], rtol=0, atol=0)
     for part in parts:
         assert part["meshed"]["position"][0] == 8
-    if site == "mh_proposal":
-        # the proposal draws from the keyed stream: no collective but the
-        # run's generator check, whatever the number of steps
-        for part in parts:
-            assert part["meshed"]["collectives"] == {"all_reduce": 0, "all_gather": 1,
-                                                     "gathered_elements": 2}
+        assert part["meshed"]["collectives"] == {"all_reduce": 0, "all_gather": 1,
+                                                 "gathered_elements": 2}
+
+
+@pytest.mark.parametrize("site", sorted(DRAW_SITES))
+def test_a_rank_draws_only_its_own_chains(two, site):
+    """Each rank's keyed draws name its 8 chains (the shared jitter global
+    chain 0 alone), and a rank draws C/R of the one process's elements (the
+    slice sampler's shrink loop, which runs as long as a rank's own chains
+    need it, at most that)."""
+    parts = [p[site] for p in _part(two, "draw_sites")]
+    single = sum(n for _, _, n in parts[0]["single"]["drawn"])
+    for rank, part in enumerate(parts):
+        drawn = part["meshed"]["drawn"]
+        assert {(off, c) for off, c, _ in drawn} <= {(8 * rank, 8), (0, 1)}
+        mine = sum(n for off, c, n in drawn if c == 8)
+        shared = sum(n for off, c, n in drawn if c == 1)
+        if site == "slice":
+            assert 0 < mine <= (single - shared) // 2
+        else:
+            assert 2 * mine == single - shared
 
 
 def test_draw_rule_gibbs_conditionals(two):
@@ -708,9 +801,17 @@ def test_generators_seeded_differently_raise(two):
         assert part["raised"] is not None and "generators" in part["raised"]
 
 
-def test_csv_on_a_mesh_of_processes_raises(two):
-    for part in _part(two, "csv"):
-        assert part["raised"] is not None and "csv" in part["raised"]
+@pytest.mark.parametrize("run", ["mcjob_stream", "mcjob_post", "gibbs"])
+def test_csv_on_a_mesh_of_processes_writes_the_one_process_bytes(two, run):
+    """Rank 0 gathers each chunk of the chains and alone writes: every file
+    of the two ranks' directory is the one process's byte for byte."""
+    parts = _part(two, "csv")
+    if run != "mcjob_post":  # the stream's writer: on rank 0 alone
+        assert [p[run]["writes"] for p in parts] == [True, False]
+    rec = parts[0][run]
+    assert rec["single"] and sorted(rec["meshed"]) == sorted(rec["single"])
+    for name, data in rec["single"].items():
+        assert rec["meshed"][name] == data, name
 
 
 # ------------------------------------------------------------ the reductions
