@@ -6,6 +6,7 @@
     python3 chip_smoke.py --zoo-only     # phases 1-4 and 12-20 (the sampler zoo)
     python3 chip_smoke.py --io-only      # phases 1-4 and 21-23 (the output layer)
     python3 chip_smoke.py --examples-only  # phases 1-3 and 24 (seven examples)
+    python3 chip_smoke.py --graphs-only  # phases 1-6, 9, 10 and 28 (the captured loops)
     python3 chip_smoke.py --profile DIR  # also profile stage 2 of both logreg rows and the Gibbs sweep
     python3 chip_smoke.py --stage1-sensitivity  # only: stage 1 with K1 and with the plain version, three seeds
 
@@ -31,13 +32,17 @@ Phases, each of which raises on failure (the script then exits non-zero):
    the phase times, min ESS, ESS/s, leaps per draw, stage 1's adapted step
    and trajectory length and the K1 launches of each stage, and hold the
    launch counts to the anchored ones (``K1_LAUNCHES_BEFORE``, on the keyed
-   streams every MCJob draw takes);
+   streams every MCJob draw takes); stage 2 samples in captured blocks
+   (``klara_tpu_torch/jobs/graphs.py``: a step replays its start, one
+   leapfrog step n_max times and its end), and the graphs replayed must be
+   more than 0;
 5. run nuts_precond at the same size: the same stage 1, stage 2 whitened
    NUTS(max_doublings=3) (bench.py's settings); check finiteness, R̂,
    that stage 2 launched K1 exactly 7 times per step plus once at init,
    K1 against its plain version on the final positions, and that the
    posterior means agree with chees_precond's within 5 combined standard
-   errors;
+   errors; stage 2 samples in captured blocks of static NUTS steps (graph
+   replays more than 0);
 6. run 5 static-tree NUTS steps of the whitened target under
    ``torch.cuda.set_sync_debug_mode("error")``: the step reads nothing back;
 7. run the looped tree (4096 chains from phase 5's final positions, 300
@@ -53,7 +58,8 @@ Phases, each of which raises on failure (the script then exits non-zero):
 9. run bench.py's rats Gibbs row: ``GibbsJob`` on the conjugate rats model
    at 4096 chains, 30000 sweeps (500 burnin), the five hyperparameters
    monitored, after a short warm-up run, every conditional drawn by K2 (the
-   keyed stream); check that every carried value and trace lives on the
+   keyed stream), the sweeps in captured blocks (graph replays more than
+   0); check that every carried value and trace lives on the
    card, every draw is finite, rank-R̂ max ≤ 1.02 and the posterior means of
    alpha_c and beta_c match the published BUGS values; print seconds,
    sweeps/s, chain-sweeps/s, min ESS, ESS per draw, ESS/s and K2's launches
@@ -162,7 +168,9 @@ Phases, each of which raises on failure (the script then exits non-zero):
    ``mesh2d(1, 2)`` at 4096 x 100 x 1024 held to K1 on the full X (phase-3
    tolerances) and run under HMC with per-chain leap counts (50 + 100
    steps; acceptance above 0.3, both ranks' ``stats.mean`` and
-   ``stats.acceptance`` equal); time K1 at 8192 chains, a rank's share of
+   ``stats.acceptance`` equal), then ``run_phased`` with shared jitter on
+   it (20 + 20 steps), which must capture no graph (the target runs
+   collectives, so sampling stays eager); time K1 at 8192 chains, a rank's share of
    the main path on two ranks.  Both processes are stopped before the phase
    ends;
 27. hold K2 (``klara_tpu_torch/ops/csrc/keyed_draws.cu``, per-chain keyed
@@ -184,7 +192,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    torch's own call, its plain version and its bound (the Philox calls,
    cheap tests and slow tests this run's elements made), and the uniforms
    MCJob draws at 16384 chains (``K2_JOB_SHAPES``: the accept uniform, NUTS's
-   (C, 14) step uniforms), compared bit for bit and timed alike.
+   (C, 14) step uniforms), compared bit for bit and timed alike;
+28. (run after phase 10) run each captured path twice from one state and
+   one run key, in captured blocks (``jobs/graphs.py``) and in the eager
+   loop: 200 stage-2 steps of chees_precond (phase 4's job and final state)
+   and of nuts_precond (phase 5's), and 500 conjugate rats sweeps from phase
+   9's final values.  Traces, final states and the K1 and K2 launch counts
+   must be equal, bit for bit, and each graph form must replay a graph.
+   Prints, both ways, ms a step or sweep (host clock to a synchronise), the
+   graph form's steady block time (CUDA events at the block ends, the
+   median block after the first two), the graphs captured and replayed, the
+   launches the replays added, the peak of allocated memory, and a profiled
+   window's kernels and device time a step; the idle shares are the eager
+   window's device time over each form's wall time.
 
 The Gibbs paths launch no K1 (their sweep is plain torch ops in both
 packages); the kernels line records their K1 count, 0.  K2 makes every draw
@@ -285,6 +305,10 @@ SMALL_CHAINS, LOOPED_POST, RAW_POST = 4096, 1000, 2400
 GIBBS_CHAINS, GIBBS_SWEEPS, GIBBS_BURNIN, GIBBS_WARM = 4096, 30000, 500, 1000
 GIBBS_MONITOR = ("alpha_c", "beta_c", "sigma2_c", "sigma2_a", "sigma2_b")
 GIBBS_PROFILE_SWEEPS = 50  # phase 9's profiled window (kernels per sweep)
+# phase 28: the windows each path runs twice (captured blocks, eager loop), and
+# the profiled windows beside them (the first block of each is eager)
+GRAPH_WINDOW_STEPS, GRAPH_WINDOW_SWEEPS = 200, 500
+GRAPH_PROFILE_STEPS, GRAPH_PROFILE_SWEEPS = 60, 300
 # published BUGS posterior means of the rats example, with the gate's width
 BUGS_MEANS = {"alpha_c": (242.5, 1.0), "beta_c": (6.19, 0.1)}
 NESTED_SWEEPS, NESTED_BURNIN = 2000, 200
@@ -344,6 +368,7 @@ MULTICHIP_BURNIN, MULTICHIP_POST = 50, 100
 P26_CHAINS, P26_MALA_STEP, P26_BURNIN, P26_POST = 4096, 0.005, 50, 100
 P26_SWEEPS = IO_GIBBS_SWEEPS
 P26_HMC_LAMBDA, P26_HMC_BURNIN, P26_HMC_POST = 0.05, 50, 100
+P26_PHASED_STEPS = 20  # run_phased's burnin and sampling steps on the param-sharded target
 P26_TIMEOUT = 600
 P26_MH_STEPS = 200
 # the two-rank csv check: MALA on the bench target streamed to csv (16 draws of
@@ -648,6 +673,7 @@ def run_main_path(device="cuda", chains=CHAINS, dim=DIM, n_data=N_DATA, burnin=B
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, k2 = logreg.KERNEL_LAUNCHES, _k2_launches()
+    replays = _graph_counts(device, "chees_precond")
     reduces = COLLECTIVES["all_reduce"] - reduces0
 
     values, chol = chain.value, info["chol"]
@@ -674,6 +700,7 @@ def run_main_path(device="cuda", chains=CHAINS, dim=DIM, n_data=N_DATA, burnin=B
             (chain.final_state.position @ chol.T).contiguous(), X, y),
         "k2_launches": k2,
         "k2_launches_per_step": k2 / (2 * burnin + post + 1),
+        **replays,
     }
     x_end = (chain.final_state.position @ chol.T).contiguous()
     if mesh is not None:
@@ -763,6 +790,7 @@ def run_nuts_precond(chees_summary, device="cuda", chains=CHAINS, dim=DIM,
     )
     torch.cuda.synchronize()
     launches, k2 = logreg.KERNEL_LAUNCHES, _k2_launches()
+    replays = _graph_counts(device, "nuts_precond")
     stage2 = launches - stage2_start[0]
 
     values, chol = chain.value, info["chol"]
@@ -793,6 +821,7 @@ def run_nuts_precond(chees_summary, device="cuda", chains=CHAINS, dim=DIM,
         "k1_launches_stage2": stage2,
         "k1_max_abs_err_on_path": k1_err,
         "k2_launches": k2,
+        **replays,
         "max_mean_z_vs_chees": z,
     }
     print(f"# nuts_precond {chains}x{dim}x{n_data}: {json.dumps(res)}", flush=True)
@@ -1191,6 +1220,7 @@ def run_gibbs_rats(device="cuda", chains=GIBBS_CHAINS, sweeps=GIBBS_SWEEPS,
     _k2_reset()
     out, secs = _timed_gibbs(full, gen, v0, device)
     launches, k2 = logreg.KERNEL_LAUNCHES, _k2_launches()
+    replays = _graph_counts(device, "gibbs_rats")
     from klara_tpu_torch.ops import keyed
 
     k2_by_mode = dict(keyed.LAUNCHES_BY_MODE)
@@ -1220,6 +1250,7 @@ def run_gibbs_rats(device="cuda", chains=GIBBS_CHAINS, sweeps=GIBBS_SWEEPS,
         "k2_launches": k2,
         "k2_launches_per_sweep": k2 / sweeps,
         "k2_launches_by_mode": k2_by_mode,
+        **replays,
         "by_key": summary,
     }
     print(f"# gibbs_rats {chains} chains x {sweeps} sweeps: {json.dumps(res)}", flush=True)
@@ -1327,6 +1358,203 @@ def profile_gibbs(job, chains, v0, gen, out_dir=None, window=200, warm=20):
             f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
         except (KeyError, AttributeError):  # torch versions before the device_* names
             f.write(prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40))
+    return res
+
+
+# ------------------------------------------- phase 28: graphs against eager
+def _bits_equal(a, b) -> bool:
+    """Bit for bit, NaNs included (a NaN field, e.g. a tuner's unset rate)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.bool:
+        return bool(torch.equal(a, b))
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return bool(torch.equal(a.contiguous().view(ints), b.contiguous().view(ints)))
+
+
+def _launch_counts():
+    from klara_tpu_torch.ops import keyed, logreg
+
+    return {"k1": logreg.KERNEL_LAUNCHES, "k2": keyed.KERNEL_LAUNCHES,
+            "k2_by_mode": {m: n for m, n in keyed.LAUNCHES_BY_MODE.items() if n}}
+
+
+def _one_form(run, n, device, window):
+    """One form of a phase-28 path: ``run()`` (returns its outputs) timed on
+    the host clock to a synchronise, with the block ends' CUDA events (each
+    ``Staging.drain``), the launch counters and graph counters from 0, the
+    peak of allocated memory, and a profiled ``window`` of the same work for
+    the kernels the profiler records."""
+    from klara_tpu_torch.jobs import graphs
+    from klara_tpu_torch.ops import logreg
+
+    events, drain = [], graphs.Staging.drain
+
+    def timed_drain(self, *a, **k):
+        drain(self, *a, **k)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append(ev)
+
+    logreg.KERNEL_LAUNCHES = 0
+    _k2_reset()
+    _sync(device)
+    torch.cuda.reset_peak_memory_stats()
+    graphs.Staging.drain = timed_drain
+    try:
+        t0 = time.perf_counter()
+        out = run(n)
+        _sync(device)
+        wall = time.perf_counter() - t0
+    finally:
+        graphs.Staging.drain = drain
+    res = {"ms_per_step": 1e3 * wall / n, **_launch_counts(), **_graph_counts(),
+           "peak_allocated_mb": torch.cuda.max_memory_allocated() / 2**20}
+    # steady state: the median block after the first two (the eager warm-up and
+    # the first capture), from the block ends' events
+    gaps = sorted(a.elapsed_time(b) for a, b in zip(events[2:], events[3:]))
+    if gaps:
+        res["block_ms_median"] = gaps[len(gaps) // 2]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    res["profiled_window"] = window
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            run(window)
+            _sync(device)
+    except RuntimeError as e:  # a measurement only: the bits and counts are held above
+        res["profiler_error"] = repr(e)
+        return out, res
+    kernels = [e for e in prof.events() if str(e.device_type).endswith("CUDA")]
+    res["profiler_kernels_per_step"] = len(kernels) / window
+    res["profiler_busy_ms_per_step"] = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / window
+    return out, res
+
+
+def _compare_forms(path, graph_out, eager_out, graph, eager):
+    """Raise unless the two forms give the same named tensors, traces among
+    them, agreeing bit for bit, and their K1 and K2 launch counts are equal."""
+    names = [name for name, _ in graph_out]
+    if names != [name for name, _ in eager_out]:
+        raise RuntimeError(f"phase 28 {path}: the graph run gives {names}, the eager run "
+                           f"{[name for name, _ in eager_out]}")
+    if not any(name.startswith("trace") for name in names):
+        raise RuntimeError(f"phase 28 {path}: no trace to compare in {names}")
+    for (name, a), (_, b) in zip(graph_out, eager_out):
+        if not _bits_equal(a, b):
+            raise RuntimeError(f"phase 28 {path}: {name} differs between the graph and eager runs")
+    for key in ("k1", "k2", "k2_by_mode"):
+        if graph[key] != eager[key]:
+            raise RuntimeError(f"phase 28 {path}: {key} launches {graph[key]} (graph) against "
+                               f"{eager[key]} (eager)")
+
+
+def _flat(prefix, tree):
+    """(name, tensor) of every tensor in ``tree``: a dict's by key, sorted, a
+    tuple's or NamedTuple's by position."""
+    if torch.is_tensor(tree):
+        return [(prefix, tree)]
+    if isinstance(tree, dict):
+        return [pair for k in sorted(tree) for pair in _flat(f"{prefix}.{k}", tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [pair for i, t in enumerate(tree) for pair in _flat(f"{prefix}[{i}]", t)]
+    return []
+
+
+def _graph_and_eager_mcjob(path, wjob, state, gen, steps, device, profile_steps):
+    """``steps`` sampling steps of ``wjob`` (a stage-2 job) from ``state``,
+    once in captured blocks and once in the eager loop, on one stream."""
+    import dataclasses
+
+    import klara_tpu_torch as kt
+    from klara_tpu_torch.jobs import graphs
+    from klara_tpu_torch.parallel.mesh import chain_context
+
+    b = wjob.mcrange.burnin
+    stream = wjob._run_stream(gen, state.position.device)
+
+    def job(n):
+        return dataclasses.replace(wjob, mcrange=kt.MCRange(n_steps=b + n, burnin=b))
+
+    def graph_run(n):
+        buffers = ({}, {})
+        with chain_context(wjob._block):
+            end = graphs.sample(job(n), state, stream, b, b + n, buffers)
+        return _flat("final", end) + _flat("trace", buffers[0]) + _flat("diag", buffers[1])
+
+    def eager_run(n):
+        buffers = ({}, {})
+        with chain_context(wjob._block):
+            end = job(n)._loop(state, stream, b, b + n, False, buffers)
+        return _flat("final", end) + _flat("trace", buffers[0]) + _flat("diag", buffers[1])
+
+    g_out, g = _one_form(graph_run, steps, device, profile_steps)
+    e_out, e = _one_form(eager_run, steps, device, profile_steps)
+    _compare_forms(path, g_out, e_out, g, e)
+    return g, e
+
+
+def run_graphs_vs_eager(chees_end, nuts_end, gibbs_parts, device="cuda",
+                        steps=GRAPH_WINDOW_STEPS, sweeps=GRAPH_WINDOW_SWEEPS):
+    """Phase 28: the three captured paths, each run twice from one state and
+    one run key, in captured blocks and in the eager loop: the stage-2
+    samplers of chees_precond (HMC, dynamic leap counts, shared jitter) and
+    nuts_precond (static NUTS) for ``steps`` steps, and the conjugate rats
+    sweep for ``sweeps`` sweeps from phase 9's final values.  Traces, final
+    states and K1 and K2 launch counts must be equal, bit for bit."""
+    import klara_tpu_torch as kt
+    from klara_tpu_torch.jobs import graphs
+
+    t_phase = time.perf_counter()
+    res = {}
+    for path, (wjob, state, gen) in (("chees_precond", chees_end), ("nuts_precond", nuts_end)):
+        g, e = _graph_and_eager_mcjob(path, wjob, state, gen, steps, device,
+                                      GRAPH_PROFILE_STEPS)
+        res[path] = {"graph": g, "eager": e, "block_steps": graphs.STEPS_PER_BLOCK}
+
+    gjob, gchains, v0, ggen = gibbs_parts
+
+    def job(n):
+        return kt.GibbsJob(gjob.model, {}, kt.MCRange(n_steps=n), n_chains=gjob.n_chains,
+                           monitor=gjob.monitor, device=device)
+
+    start = job(1)._initial_values({**v0, **gchains.final_values}, prebatched=True)
+    stream = job(1)._stream(ggen, ggen.device)
+
+    def traces(n):
+        return {k: torch.empty((n,) + tuple(start[k].shape), dtype=start[k].dtype,
+                               device=start[k].device) for k in gjob.monitor}
+
+    def graph_sweeps(n):
+        buffers, j = traces(n), job(n)
+        end = graphs.sweep_blocks(j, start, stream, n, buffers)
+        return _flat("final", {k: end[k] for k in j._carry_keys()}) + _flat("trace", buffers)
+
+    def eager_sweeps(n):
+        buffers, j = traces(n), job(n)
+        end = j._sweeps(start, stream, buffers, {})
+        return _flat("final", {k: end[k] for k in j._carry_keys()}) + _flat("trace", buffers)
+
+    g_out, g = _one_form(graph_sweeps, sweeps, device, GRAPH_PROFILE_SWEEPS)
+    e_out, e = _one_form(eager_sweeps, sweeps, device, GRAPH_PROFILE_SWEEPS)
+    _compare_forms("gibbs_rats", g_out, e_out, g, e)
+    res["gibbs_rats"] = {"graph": g, "eager": e, "block_sweeps": graphs.SWEEPS_PER_BLOCK}
+    for path, r in res.items():
+        g, e = r["graph"], r["eager"]
+        if torch.device(device).type == "cuda" and g["graph_replays"] <= 0:
+            raise RuntimeError(f"phase 28 {path}: no graph was replayed")
+        # the same work a step: the eager window's profiled device time
+        busy = e.get("profiler_busy_ms_per_step", 0.0)
+        steady = g.get("block_ms_median", 0.0) / r.get("block_steps", r.get("block_sweeps"))
+        r.update(bits_equal=True, launches_equal=True,
+                 speedup_wall=e["ms_per_step"] / g["ms_per_step"],
+                 graph_ms_per_step_steady=steady,
+                 idle_share_eager=1.0 - busy / e["ms_per_step"],
+                 idle_share_graph=1.0 - busy / g["ms_per_step"],
+                 idle_share_graph_steady=1.0 - busy / steady if steady else None,
+                 profiler_sees_replays=g.get("profiler_kernels_per_step", 0.0)
+                 / max(e.get("profiler_kernels_per_step", 0.0), 1e-9))
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"# phase 28 (graphs against eager): {json.dumps(res)}", flush=True)
     return res
 
 
@@ -2407,12 +2635,26 @@ def _p26_param(device="cuda"):
     chain = job.run(torch.Generator(device=device).manual_seed(262),
                     torch.zeros(DIM, device=device))
     k2 = _k2_launches()
+    k1 = logreg.KERNEL_LAUNCHES
     leaps = chain["nleaps"]
+    # run_phased's sampling on a target that runs collectives stays eager
+    phased = dataclasses.replace(
+        job, sampler=dataclasses.replace(sampler, jitter_style="step"),
+        mcrange=kt.MCRange(n_steps=2 * P26_PHASED_STEPS, burnin=P26_PHASED_STEPS))
+    _k2_reset()
+    pchain, _ = phased.run_phased(torch.Generator(device=device).manual_seed(263),
+                                  torch.zeros(DIM, device=device))
+    graphs_run = _graph_counts()
+    if graphs_run["graphs_captured"] or graphs_run["graph_replays"]:
+        raise RuntimeError(f"phase 26: run_phased on the param-sharded target ran graphs: "
+                           f"{graphs_run}")
     return {"max_abs_err_vs_k1": err, "finite": bool(torch.isfinite(chain.value).all()),
             "mean": kt.stats.mean(chain).cpu(), "acceptance": float(kt.stats.acceptance(chain)),
             "leaps_per_step": float(leaps.to(torch.float64).mean()),
             "steps_with_mixed_leaps": int((leaps.max(1).values != leaps.min(1).values).sum()),
-            "k1_launches": logreg.KERNEL_LAUNCHES, "k2_launches": k2}
+            "k1_launches": k1, "k2_launches": k2,
+            "phased_finite": bool(torch.isfinite(pchain.value).all()),
+            "phased_graphs": graphs_run}
 
 
 def rank_worker(rank, init_file, out_dir, device="cuda:0"):
@@ -2516,7 +2758,8 @@ def run_two_ranks_on_one_card(device="cuda"):
                         if ref_csv["files"].get(k) != parts[0]["csv"]["files"].get(k))
         raise RuntimeError(f"the two ranks' csv files differ from one process's: {differ}")
     a, b = parts[0]["param"], parts[1]["param"]
-    if not (a["finite"] and a["acceptance"] > 0.3 and a["steps_with_mixed_leaps"] > 0):
+    if not (a["finite"] and a["acceptance"] > 0.3 and a["steps_with_mixed_leaps"] > 0
+            and a["phased_finite"] and b["phased_finite"]):
         raise RuntimeError(f"param-sharded HMC: {a}")
     if not torch.equal(a["mean"], b["mean"]) or a["acceptance"] != b["acceptance"]:
         raise RuntimeError("the two param ranks report different stats.mean or acceptance")
@@ -2550,11 +2793,28 @@ def run_two_ranks_on_one_card(device="cuda"):
 
 # ------------------------------------------------ phase 27: K2, keyed draws
 def _k2_reset():
-    """Zero K2's launch counters (before a path's run)."""
+    """Zero K2's launch counters and the graph counters (before a path's run)."""
+    from klara_tpu_torch.jobs import graphs
     from klara_tpu_torch.ops import keyed
 
     keyed.KERNEL_LAUNCHES = 0
     keyed.LAUNCHES_BY_MODE = {m: 0 for m in keyed.MODES}
+    graphs.GRAPHS_CAPTURED = graphs.GRAPH_REPLAYS = 0
+    graphs.REPLAYED_LAUNCHES = {"k1": 0, "k2": 0}
+
+
+def _graph_counts(device="cuda", gate=None):
+    """The graphs captured and replayed since ``_k2_reset`` and the K1 and K2
+    launches the replays added; with ``gate`` (a path's name) on the card,
+    raise unless the path replayed a graph."""
+    from klara_tpu_torch.jobs import graphs
+
+    out = {"graphs_captured": graphs.GRAPHS_CAPTURED, "graph_replays": graphs.GRAPH_REPLAYS,
+           "k1_launches_in_replays": graphs.REPLAYED_LAUNCHES["k1"],
+           "k2_launches_in_replays": graphs.REPLAYED_LAUNCHES["k2"]}
+    if gate and torch.device(device).type == "cuda" and out["graph_replays"] <= 0:
+        raise RuntimeError(f"{gate}: no graph was replayed")
+    return out
 
 
 def _k2_launches():
@@ -3273,7 +3533,6 @@ def main():
         return
     if profile_dir:
         profile_chees(*chees_end, profile_dir)
-    del chees_end
     if "--zoo-only" in sys.argv:
         run_zoo_logreg(x_end, chees_summary)
         run_zoo_ars()
@@ -3288,8 +3547,9 @@ def main():
     check_no_host_read(wjob, state, gen)
     if profile_dir:
         profile_nuts(wjob, state, gen, profile_dir)
-    looped = run_nuts_looped(wjob, state, chol, gen, nuts["mean_na"], data)
-    raw = run_nuts_raw()
+    if "--graphs-only" not in sys.argv:
+        looped = run_nuts_looped(wjob, state, chol, gen, nuts["mean_na"], data)
+        raw = run_nuts_raw()
     gibbs, gjob, gchains, gv0, ggen = run_gibbs_rats()
     check_gibbs_no_host_read(gjob, gchains, gv0, ggen)
     # kernels and K2 launches per conjugate sweep (84.6-85.0 kernels with torch's own draws)
@@ -3299,6 +3559,11 @@ def main():
           f"({gprof['k2_kernels_per_sweep']} K2), {gibbs['ms_per_sweep']} ms of the run's wall, "
           f"{gprof['device_busy_us_per_sweep']} us of device time, "
           f"{gprof['k2_host_us_per_sweep']} us of host time in its K2 draws", flush=True)
+    graphs28 = run_graphs_vs_eager(chees_end, (wjob, state, gen), (gjob, gchains, gv0, ggen))
+    del chees_end, wjob, state
+    if "--graphs-only" in sys.argv:
+        print(card)
+        return
     nested = run_gibbs_nested(gibbs["by_key"])
     zoo = run_zoo_logreg(x_end, chees_summary)
     ars = run_zoo_ars()
@@ -3422,6 +3687,14 @@ def main():
         "by_mode": keyed_draws["times"],
         "kernels_by_mode": keyed_draws["kernels"],
     }]}
+    # launches that came from graph replays, on the paths that run captured blocks
+    for kernel, short in zip(kernels["kernels"], ("k1", "k2")):
+        kernel["launches_in_graph_replays_by_path"] = {
+            "chees_precond": chees[f"{short}_launches_in_replays"],
+            "nuts_precond": nuts[f"{short}_launches_in_replays"],
+            "gibbs_rats": gibbs[f"{short}_launches_in_replays"],
+            **{f"phase28_{path}": graphs28[path]["graph"][f"{short}_launches_in_replays"]
+               for path in ("chees_precond", "nuts_precond", "gibbs_rats")}}
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

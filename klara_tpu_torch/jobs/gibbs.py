@@ -34,7 +34,10 @@ windows lie in ``[NESTED_SITES, JOB_SITES)``, one per nested step, each as
 wide as the sampler's ``keyed_sites``); the hoisted step-size search draws
 its momentum at step 0 in the block's first window.
 
-Sweeps run in a Python loop.  A variable with ``'csv'`` outopts streams to
+A sweep of conjugate draws alone (no nested block, no csv variable) runs
+in captured blocks of sweeps (``jobs.graphs``: CUDA graphs on the card, the
+same blocks eagerly on the CPU), bit for bit the eager loop; the others run
+in a Python loop.  A variable with ``'csv'`` outopts streams to
 its own directory: its saved draws gather in a ring of ``stream_chunk`` rows
 on the device, and each chunk of sweeps that saved a draw reaches the host
 in one copy per csv variable and one host read; on a mesh each chunk is
@@ -72,6 +75,7 @@ from klara_tpu_torch.core.device import resolve_device
 from klara_tpu_torch.core.target import Target
 from klara_tpu_torch.distributions.core import draw_per_chain
 from klara_tpu_torch.io.stream import DrawRing, StreamingWriter
+from klara_tpu_torch.jobs import graphs
 from klara_tpu_torch.jobs.range import MCRange
 from klara_tpu_torch.models.graph import Data, GenericModel, GibbsParameter, Transformation
 from klara_tpu_torch.ops.keyed import JOB_SITES, NESTED_SITES, KeyedStream, raise_on_overflow
@@ -337,11 +341,12 @@ class GibbsJob:
         offset = 0 if self._block is None else self._block.offset
         return KeyedStream.for_run(generator, device, self._local_chains, offset)
 
-    def _sweep(self, values, generator, hoisted, noise=None, stream=None, sweep=0):
+    def _sweep(self, values, generator, hoisted, noise=None, stream=None, sweep=0, step_add=0):
         """One full sweep over this rank's chains: (updated values,
         diagnostics).  Conditional block b draws from ``stream`` (default: a
-        fresh one from ``generator``) at counter (``sweep``, b); ``noise``
-        ({key: standard draw}) replays conditional draws."""
+        fresh one from ``generator``) at counter (``sweep`` + ``step_add``, b),
+        ``sweep`` an int or a captured block's step counter on the device;
+        ``noise`` ({key: standard draw}) replays conditional draws."""
         if stream is None:
             stream = self._stream(generator, self._device_of(values))
         values, diags = dict(values), {}
@@ -349,7 +354,7 @@ class GibbsJob:
             values[u.key] = u.update(values)
         for b, var in enumerate(self._dependents):
             values[var.key], d = self._block_update(
-                var, values, stream.at(step=sweep, site=b), hoisted,
+                var, values, stream.at(step=sweep, step_add=step_add, site=b), hoisted,
                 None if noise is None else noise.get(var.key)
             )
             diags.update(d)
@@ -386,7 +391,6 @@ class GibbsJob:
 
     # ------------------------------------------------------------------ run
     def _run(self, generator, v0: Dict[str, Any], prebatched: bool):
-        burnin, thinning = self.mcrange.burnin, self.mcrange.thinning
         n_post = self.mcrange.n_post
         values = self._initial_values(v0, prebatched)
         device = self._device_of(values)
@@ -413,10 +417,27 @@ class GibbsJob:
             for k in diag_keys
         }
         stream = self._stream(generator, device)
+        if graphs.sweeps_capturable(self):
+            values = graphs.sweep_blocks(self, values, stream, self.mcrange.n_steps, buffers)
+        else:
+            values = self._sweeps(values, stream, buffers, diag_buffers)
+        raise_on_overflow()
+        return GibbsChains(
+            samples=buffers,
+            final_values={k: values[k] for k in self._carry_keys()},
+            diagnostics=diag_buffers,
+            mesh=self.mesh,
+            chains_axis=self.chains_axis,
+        )
+
+    def _sweeps(self, values, stream, buffers, diag_buffers):
+        """The eager loop: every sweep of the run, one at a time (nested
+        blocks, csv variables)."""
+        burnin, thinning = self.mcrange.burnin, self.mcrange.thinning
         hoisted = self._hoist_step_sizes(values, stream)
         n_steps, ring = self.mcrange.n_steps, self._ring
         for i in range(n_steps):
-            values, diags = self._sweep(values, generator, hoisted, stream=stream, sweep=i)
+            values, diags = self._sweep(values, None, hoisted, stream=stream, sweep=i)
             if i >= burnin and (i - burnin) % thinning == 0:
                 j = (i - burnin) // thinning
                 for k, buf in buffers.items():
@@ -430,14 +451,7 @@ class GibbsJob:
                 if count and self._writers:
                     for k in self._csv_keys:
                         self._writers[k].append_block(count, {k: host[k]})
-        raise_on_overflow()
-        return GibbsChains(
-            samples=buffers,
-            final_values={k: values[k] for k in self._carry_keys()},
-            diagnostics=diag_buffers,
-            mesh=self.mesh,
-            chains_axis=self.chains_axis,
-        )
+        return values
 
     def run(self, generator, v0: Dict[str, Any]) -> GibbsChains:
         """Sweep ``mcrange.n_steps`` times from ``v0``, which holds a value

@@ -58,6 +58,7 @@ import torch
 from klara_tpu_torch.core.device import resolve_device
 from klara_tpu_torch.core.target import Target, whiten_target
 from klara_tpu_torch.io.stream import DrawRing, StreamingWriter
+from klara_tpu_torch.jobs import graphs
 from klara_tpu_torch.jobs.chain import Chain
 from klara_tpu_torch.jobs.gibbs import _as_tensor
 from klara_tpu_torch.jobs.range import MCRange
@@ -463,6 +464,30 @@ class MCJob:
             and getattr(s, "dynamic_nleaps", False)
         )
 
+    def _step_sampler(self):
+        """The sampler a step runs: under shared jitter with its own jitter
+        off, since the job scales every chain's λ (``_under_jitter``)."""
+        return dataclasses.replace(self.sampler, jitter=0.0) if self._shared_jitter() \
+            else self.sampler
+
+    def _shared_fraction(self, at, like):
+        """The shared jitter fraction of the step ``at`` points at: global
+        chain 0's draw at ``SHARED_JITTER``, the same on every rank with no
+        collective, mapped to U(1 − jitter, 1 + jitter)."""
+        u = draw_uniform(at.at(chains=1, offset=0), SHARED_JITTER, (1,), like)[0]
+        return jitter_fraction(u, self.sampler.jitter)
+
+    @staticmethod
+    def _under_jitter(states, frac, step):
+        """``step(states)`` -> (states, out) with every chain's λ scaled by
+        the shared fraction ``frac`` (None: not scaled): a log_traj offset
+        that the step reads and that is taken back after it."""
+        if frac is None:
+            return step(states)
+        lt = states.log_traj
+        states, out = step(states._replace(log_traj=lt + torch.log(frac)))
+        return states._replace(log_traj=lt), out
+
     def _loop(self, states, stream, start, stop, adapt, buffers=None, ring=None):
         """Steps [start, stop), step i drawing from ``stream`` at step i.
         Saved draws go to ``buffers`` (device traces) and ``ring`` (a csv
@@ -470,28 +495,19 @@ class MCJob:
         steps and at ``stop``).  With shared ('step') jitter one draw per
         step, the same on every rank, scales every chain's λ through a
         temporary log_traj offset, so all chains run the same leap count."""
-        sampler, target = self.sampler, self.target
+        target = self.target
         burnin, thinning = self.mcrange.burnin, self.mcrange.thinning
         shared = self._shared_jitter()
-        step_sampler = dataclasses.replace(sampler, jitter=0.0) if shared else sampler
-        if sampler.keyed_sites(states.position) > MH_SITE + 1 - JOB_SITES:
-            raise ValueError(f"{type(sampler).__name__} draws at more sites a step than "
-                             f"MCJob's window holds ({MH_SITE + 1 - JOB_SITES})")
+        step_sampler = self._step_sampler()
+        self._check_sites(states)
         for i in range(start, stop):
             prev_pos = states.position
-            frac_shared = 1.0
             at = stream.at(step=i)
-            if shared:
-                lt_saved = states.log_traj
-                # global chain 0's draw: the same on every rank, no collective
-                u = draw_uniform(at.at(chains=1, offset=0), SHARED_JITTER, (1,), lt_saved)[0]
-                frac_shared = jitter_fraction(u, sampler.jitter)
-                states = states._replace(log_traj=lt_saved + torch.log(frac_shared))
-            states, infos = step_sampler.step(states, target, stream=at)
-            if shared:
-                states = states._replace(log_traj=lt_saved)
+            frac = self._shared_fraction(at, states.log_traj) if shared else None
+            states, infos = self._under_jitter(
+                states, frac, lambda st: step_sampler.step(st, target, stream=at))
             if adapt:
-                states = self.adapt(prev_pos, states, infos, i, frac_shared)
+                states = self.adapt(prev_pos, states, infos, i, 1.0 if frac is None else frac)
             if i >= burnin and (i - burnin) % thinning == 0:
                 if buffers is not None:
                     self._write(buffers, (i - burnin) // thinning, states, infos)
@@ -502,6 +518,19 @@ class MCJob:
             if self.verbose and (i + 1) % self.progress_period == 0:
                 self._report(i, infos)
         return states
+
+    def _check_sites(self, states):
+        if self.sampler.keyed_sites(states.position) > MH_SITE + 1 - JOB_SITES:
+            raise ValueError(f"{type(self.sampler).__name__} draws at more sites a step than "
+                             f"MCJob's window holds ({MH_SITE + 1 - JOB_SITES})")
+
+    def _sample(self, states, stream, start, stop, buffers):
+        """The sampling phase's steps [start, stop), without adaptation: in
+        captured blocks where ``jobs.graphs`` takes the sampler (the static
+        NUTS tree, HMC), else in the eager loop; bit for bit either way."""
+        if graphs.sampling_kind(self) is None:
+            return self._loop(states, stream, start, stop, False, buffers)
+        return graphs.sample(self, states, stream, start, stop, buffers)
 
     def _report(self, i: int, infos: Info):
         """The progress line of step ``i``: the pooled acceptance rate, read
@@ -518,25 +547,31 @@ class MCJob:
         out.update({n: _diag_value(n, states, infos) for n in self.diagnostics})
         return out
 
-    def _write(self, buffers, idx, states, infos):
-        samples, diags = buffers
+    def _saved(self, states, infos):
+        """One saved draw: ((group, name), value, trace dtype) of each
+        monitored field (group 0) and diagnostic (group 1); floating
+        monitored fields are stored in ``trace_dtype``."""
         tdt = getattr(torch, self.trace_dtype) if self.trace_dtype else None
-        n_post = self.mcrange.n_post
+        out = []
         for group, names, fn, cast in (
-            (samples, self.monitor, lambda n: _field_value(n, states, infos, self.target), True),
-            (diags, self.diagnostics, lambda n: _diag_value(n, states, infos), False),
+            (0, self.monitor, lambda n: _field_value(n, states, infos, self.target), True),
+            (1, self.diagnostics, lambda n: _diag_value(n, states, infos), False),
         ):
             for name in names:
                 val = fn(name)
-                if name not in group:
-                    dt = val.dtype
-                    if cast and tdt is not None and val.is_floating_point():
-                        dt = tdt
-                    # every slot is written exactly once by the end of the run
-                    group[name] = torch.empty(
-                        (n_post,) + tuple(val.shape), dtype=dt, device=val.device
-                    )
-                group[name][idx] = val
+                dt = tdt if cast and tdt is not None and val.is_floating_point() else val.dtype
+                out.append(((group, name), val, dt))
+        return out
+
+    def _write(self, buffers, idx, states, infos):
+        n_post = self.mcrange.n_post
+        for (g, name), val, dt in self._saved(states, infos):
+            group = buffers[g]
+            if name not in group:
+                # every slot is written exactly once by the end of the run
+                group[name] = torch.empty((n_post,) + tuple(val.shape), dtype=dt,
+                                          device=val.device)
+            group[name][idx] = val
 
     # ------------------------------------------------------------------- run
     def run(self, generator=None, x0=None) -> Chain:
@@ -642,8 +677,8 @@ class MCJob:
             _sync(device)
             t1 = time.perf_counter()
             buffers = ({}, {})
-            states = self._loop(states, stream, burnin, self.mcrange.n_steps, False,
-                                buffers if self.destination == "nstate" else None)
+            states = self._sample(states, stream, burnin, self.mcrange.n_steps,
+                                  buffers if self.destination == "nstate" else None)
         _sync(device)
         raise_on_overflow()
         t2 = time.perf_counter()

@@ -16,7 +16,9 @@ drawn once per run from the run's ``torch.Generator`` (``run_key``; it stays
 on the device, so no host read).  The counter is four words:
 
     c0 = the chain's global index
-    c1 = the step (the MCJob step, the Gibbs sweep), mod 2^32
+    c1 = the step (the MCJob step, the Gibbs sweep), mod 2^32: an int, or
+         a 0-d int64 step on the device plus an int ``step_add`` (a
+         captured block's k-th step reads the block's counter + k)
     c2 = site << 8 | part   (site < 2^24, below; part < 256: 0, or 1 for
                              the second gamma draw of a Beta)
     c3 = element << 12 | call   (element < 2^20: the index within the
@@ -249,7 +251,9 @@ class KeyedStream:
     """Keyed draws for ``chains`` chains whose first has the global index
     ``offset``, at counter (``step``, ``site``, ``part``).  ``key`` is a 0-d
     int64 tensor (``run_key``) on the draws' device; ``step`` a number or a
-    0-d int64 tensor on that device.  Every draw's shape has the chains on
+    0-d int64 tensor on that device, to which ``at(step_add=)`` adds an
+    int: counter word 1 is (step + step_add) mod 2^32, a tensor step read
+    by the kernel at each launch.  Every draw's shape has the chains on
     axis 0; the element counter runs over the rest of it.  ``window`` is the
     top site of a sampler's draws (``window_site``): MCJob's, ``MH_SITE``,
     unless a nested Gibbs block names its own.
@@ -282,6 +286,8 @@ class KeyedStream:
     chains = property(lambda self: self._chains)
     offset = property(lambda self: self._offset)
     step = property(lambda self: self._step)
+    # the int added to the step: counter word 1 is step_add alone for an int step
+    step_add = property(lambda self: self._step_add)
     site = property(lambda self: self._site)
     part = property(lambda self: self._part)
     device = property(lambda self: self._device)
@@ -289,7 +295,8 @@ class KeyedStream:
 
     def __repr__(self):
         return (f"KeyedStream(chains={self._chains}, offset={self._offset}, step={self._step!r}, "
-                f"site={self._site}, part={self._part}, window={self._window}, "
+                f"step_add={self._step_add}, site={self._site}, part={self._part}, "
+                f"window={self._window}, "
                 f"device={self._device})")
 
     def _set_chains(self, chains, offset):
@@ -298,15 +305,16 @@ class KeyedStream:
             raise ValueError(f"keyed draws: chains [{offset}, {offset + chains}) out of range")
         self._chains, self._offset = chains, offset
 
-    def _set_step(self, step):
+    def _set_step(self, step, step_add=0):
+        step_add = operator.index(step_add)
         if torch.is_tensor(step):
             check_device("the step", step.device, self._device)
             if step.dtype != torch.int64 or step.numel() != 1:
                 raise ValueError("keyed draws: a tensor step is a 0-d int64 on the stream's "
                                  "device")
-            self._step_tensor, self._step_add = step, 0
+            self._step_tensor, self._step_add = step, step_add & _MASK
         else:
-            self._step_tensor, self._step_add = None, operator.index(step) & _MASK
+            self._step_tensor, self._step_add = None, (operator.index(step) + step_add) & _MASK
         self._step = step
 
     def _set_site(self, site, part):
@@ -321,10 +329,12 @@ class KeyedStream:
             raise ValueError(f"keyed draws: window {window} out of range")
         self._window = window
 
-    def at(self, *, step=_SAME, site=_SAME, part=_SAME, chains=_SAME, offset=_SAME,
-           window=_SAME):
+    def at(self, *, step=_SAME, step_add=_SAME, site=_SAME, part=_SAME, chains=_SAME,
+           offset=_SAME, window=_SAME):
         """The stream at another ``step``, ``site``, ``part``, chain count,
-        offset or window; the other fields kept (and not checked again)."""
+        offset or window; the other fields kept (and not checked again).  A
+        new ``step`` comes with ``step_add`` 0 unless one is given; a
+        ``step_add`` alone keeps the step (a tensor step: a block's counter)."""
         new = object.__new__(KeyedStream)
         new._key, new._device = self._key, self._device
         if window is _SAME:
@@ -336,11 +346,13 @@ class KeyedStream:
         else:
             new._set_chains(self._chains if chains is _SAME else chains,
                             self._offset if offset is _SAME else offset)
-        if step is _SAME:
+        if step is _SAME and step_add is _SAME:
             new._step, new._step_add, new._step_tensor = (self._step, self._step_add,
                                                           self._step_tensor)
+        elif step is _SAME:
+            new._set_step(self._step, step_add)
         else:
-            new._set_step(step)
+            new._set_step(step, 0 if step_add is _SAME else step_add)
         if site is _SAME and part is _SAME:
             new._site, new._part, new._site_word = self._site, self._part, self._site_word
         else:
@@ -409,7 +421,8 @@ class _Ctx:
     def __init__(self, stream, elems, site_word):
         key = int(stream.key)  # on the card a host read: the plain version is no path's
         self.k0, self.k1 = key & _MASK, (key >> 32) & _MASK
-        self.c1 = int(stream.step) & _MASK
+        step = stream._step_tensor
+        self.c1 = (stream._step_add + (0 if step is None else int(step))) & _MASK
         self.c2, self.elems, self.offset = site_word, elems, stream.offset
 
     def words(self, idx, call):

@@ -57,6 +57,17 @@ def leapfrog_step(target, pp: PhasePoint, eps, inv_mass=None) -> PhasePoint:
     return PhasePoint(x, p, lt, grad)
 
 
+def leap(target, pp: PhasePoint, eps, inv_mass=None, live=None) -> PhasePoint:
+    """One step of ``leapfrog``: a chain whose ``live`` (a (C,) bool) is
+    False keeps ``pp``; with ``live`` None every chain steps."""
+    new = leapfrog_step(target, pp, eps, inv_mass)
+    if live is None:
+        return new
+    return PhasePoint(*(
+        torch.where(live.view((-1,) + (1,) * (a.dim() - 1)), a, b) for a, b in zip(new, pp)
+    ))
+
+
 def leapfrog(target, pp: PhasePoint, eps, n_steps, inv_mass=None) -> PhasePoint:
     """``n_steps`` leapfrog steps: an int, or a per-chain (C,) tensor.
 
@@ -68,15 +79,7 @@ def leapfrog(target, pp: PhasePoint, eps, n_steps, inv_mass=None) -> PhasePoint:
     else:
         n_max, n_min = (int(t) for t in torch.stack([n_steps.max(), n_steps.min()]).tolist())
     for k in range(n_max):
-        new = leapfrog_step(target, pp, eps, inv_mass)
-        if k < n_min:
-            pp = new
-        else:
-            live = k < n_steps  # (C,)
-            pp = PhasePoint(*(
-                torch.where(live.view((-1,) + (1,) * (a.dim() - 1)), a, b)
-                for a, b in zip(new, pp)
-            ))
+        pp = leap(target, pp, eps, inv_mass, None if k < n_min else k < n_steps)
     return pp
 
 

@@ -116,18 +116,27 @@ class HMC(Sampler):
              jitter_u=None, stream=None):
         """One HMC transition for every chain.  ``momentum``, ``u`` (the
         accept uniform) and ``jitter_u`` may be given to replay draws."""
-        x, lt, grad = state.position, state.logtarget, state.gradlogtarget
-        eps = state.tune.step
-        inv_mass = state.inv_mass
         jittered = self.dynamic_nleaps and self.jitter > 0.0
         if momentum is None or u is None or (jittered and jitter_u is None):
-            stream = step_stream(stream, generator, x)
+            stream = step_stream(stream, generator, state.position)
+        start, h0, nleaps, frac = self.begin(state, stream, momentum, jitter_u)
+        pp = leapfrog(target, start, state.tune.step, nleaps, state.inv_mass)
+        return self.finish(state, pp, h0, nleaps, frac, stream, u)
 
-        nleaps, frac = self._nleaps(eps, state.log_traj, stream, jitter_u)
-        p0 = momentum if momentum is not None else sample_momentum(stream, x, inv_mass)
-        h0 = hamiltonian(lt, p0, inv_mass)
-        pp = leapfrog(target, PhasePoint(x, p0, lt, grad), eps, nleaps, inv_mass)
-        h1 = hamiltonian(pp.logtarget, pp.momentum, inv_mass)
+    def begin(self, state: HMCState, stream, momentum=None, jitter_u=None):
+        """A transition's start: (the phase point with its momentum drawn,
+        H there, the per-chain leap counts, the jitter fraction)."""
+        x, lt, grad = state.position, state.logtarget, state.gradlogtarget
+        nleaps, frac = self._nleaps(state.tune.step, state.log_traj, stream, jitter_u)
+        p0 = momentum if momentum is not None else sample_momentum(stream, x, state.inv_mass)
+        h0 = hamiltonian(lt, p0, state.inv_mass)
+        return PhasePoint(x, p0, lt, grad), h0, nleaps, frac
+
+    def finish(self, state: HMCState, pp: PhasePoint, h0, nleaps, frac, stream, u=None):
+        """A transition's end from the trajectory's last point ``pp``: the
+        Metropolis test against H ``h0`` at its start; (new state, info)."""
+        x, lt, grad = state.position, state.logtarget, state.gradlogtarget
+        h1 = hamiltonian(pp.logtarget, pp.momentum, state.inv_mass)
         ratio = h1 - h0
         ratio = torch.where(torch.isnan(ratio), torch.full_like(ratio, -math.inf), ratio)
 
