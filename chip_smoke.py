@@ -9,6 +9,7 @@
     python3 chip_smoke.py --graphs-only  # phases 1-6, 9, 10 and 28 (the captured loops)
     python3 chip_smoke.py --profile DIR  # also profile stage 2 of both logreg rows and the Gibbs sweep
     python3 chip_smoke.py --stage1-sensitivity  # only: stage 1 with K1 and with the plain version, three seeds
+    python3 chip_smoke.py --tracing-only  # phases 1-3 and 29 (the tracer's cost)
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -204,7 +205,18 @@ Phases, each of which raises on failure (the script then exits non-zero):
    median block after the first two), the graphs captured and replayed, the
    launches the replays added, the peak of allocated memory, and a profiled
    window's kernels and device time a step; the idle shares are the eager
-   window's device time over each form's wall time.
+   window's device time over each form's wall time;
+29. (``--tracing-only``) the tracer's cost (``klara_tpu_torch/utils/tracing.py``):
+   phase 4's chees_precond job and phase 9's rats job at their sizes, each
+   run twelve times in turns from one seed with span recording off, on, on,
+   off, three rounds (``tracing.recording()``); prints each run's wall, each
+   neighbouring off/on pair's ratio and their median, its job report's
+   phases and the spans it recorded, and raises unless a run with recording
+   off leaves no span, each run leaves one job report, and every span of a
+   recorded run lies inside its job's report window; then each job eight
+   times under ``torch.profiler`` (CUDA activity, as the benchmark's traced
+   job), the tracer's spans off, on, on, off, two rounds: what the spans and
+   their ``record_function`` cost a profiled job.
 
 The Gibbs paths launch no K1 (their sweep is plain torch ops in both
 packages); the kernels line records their K1 count, 0.  K2 makes every draw
@@ -245,6 +257,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -2791,6 +2804,166 @@ def run_two_ranks_on_one_card(device="cuda"):
     return res
 
 
+# ------------------------------------------------ phase 29: the tracer's cost
+def _traced_runs(run, device, order=(False, True, True, False) * 3):
+    """``run()`` (one job) once per entry of ``order``, with span recording on
+    where it is True: per run its wall (host clock to a synchronise), its
+    job report and the count of spans by name; raises unless a run with
+    recording off leaves no span, each run leaves one report, and every
+    span of a recorded run lies inside its report's window."""
+    from collections import Counter
+
+    from klara_tpu_torch.utils import tracing
+
+    out = []
+    for on in order:
+        tracing.reset()
+        _sync(device)
+        t0 = time.perf_counter()
+        with tracing.recording() if on else contextlib.nullcontext():
+            run()
+        _sync(device)
+        wall = time.perf_counter() - t0
+        reports, spans = tracing.reports(), tracing.spans()
+        if len(reports) != 1:
+            raise RuntimeError(f"tracer: {len(reports)} job reports from one job")
+        rep = reports[0]
+        if not on and spans:
+            raise RuntimeError(f"tracer: {len(spans)} spans with recording off")
+        outside = [s for s in spans if s.end is None or s.start / 1e9 < rep["t0"]
+                   or s.end / 1e9 > rep["t1"]]
+        if outside:
+            raise RuntimeError(f"tracer: {len(outside)} spans outside the job's window")
+        counters = {k: v for k, v in rep["counters"].items() if not k.startswith("ops.keyed.")}
+        own = [v[0] for k, v in rep["counters"].items() if not k.startswith(MODULE_COUNTERS)]
+        out.append({"recording": on, "wall_s": wall, "report_s": rep["t1"] - rep["t0"],
+                    "counter_events": sum(own),
+                    "phases": {k: [round(p["seconds"], 6), p["steps"]]
+                               for k, p in rep["phases"].items()},
+                    "counters": counters, "spans": len(spans),
+                    "spans_by_name": dict(Counter(s.name for s in spans).most_common(12))})
+        print(f"# phase 29 run: {json.dumps(out[-1])}", flush=True)
+    return out
+
+
+MODULE_COUNTERS = ("ops.", "jobs.", "parallel.", "samplers.")  # the repo's module counters
+
+
+def _event_ns(n=200_000):
+    """Host ns of one tracer event on this machine: a span site and a timed
+    counter, recording off and on (``n`` of each in a loop)."""
+    from klara_tpu_torch.utils import tracing
+
+    out = {}
+    for on in (False, True):
+        with tracing.recording() if on else contextlib.nullcontext():
+            t0 = time.perf_counter_ns()
+            for _ in range(n):
+                with tracing.span("x"):
+                    pass
+            t1 = time.perf_counter_ns()
+            for _ in range(n):
+                with tracing.timed("x"):
+                    pass
+            t2 = time.perf_counter_ns()
+        state = "on" if on else "off"
+        out[f"span_{state}_ns"], out[f"timed_{state}_ns"] = (t1 - t0) / n, (t2 - t1) / n
+        tracing.reset()
+    return out
+
+
+def _pairs(runs):
+    """Each neighbouring pair of runs in turns (one off, one on): the on
+    run's wall over the off run's, less 1; and their median."""
+    pairs = [(b if b_on else a) / (a if b_on else b) - 1.0
+             for (a, b), b_on in zip(zip(*[iter(r["wall_s"] for r in runs)] * 2),
+                                     (r["recording"] for r in runs[1::2]))]
+    return {"pairs_on_over_off": pairs, "median_on_over_off": statistics.median(pairs)}
+
+
+def _profiled_runs(run, device, order=(False, True, True, False) * 2):
+    """``run()`` under ``torch.profiler`` with CUDA activity (as the
+    benchmark profiles its traced job) once per entry of ``order``; where
+    False the tracer's spans stay off under the profiler (its profiler check
+    replaced for the run), so a pair shows what the spans and their
+    ``record_function`` cost a profiled job.  The wall is the job's, to a
+    synchronise, inside the profiler's block."""
+    from klara_tpu_torch.utils import tracing
+
+    acts = [torch.profiler.ProfilerActivity.CUDA if torch.device(device).type == "cuda"
+            else torch.profiler.ProfilerActivity.CPU]
+    real, out = tracing._profiling, []
+    for on in order:
+        tracing.reset()
+        tracing._profiling = real if on else (lambda: False)
+        try:
+            with torch.profiler.profile(activities=acts):
+                _sync(device)
+                t0 = time.perf_counter()
+                run()
+                _sync(device)
+                wall = time.perf_counter() - t0
+        finally:
+            tracing._profiling = real
+        out.append({"recording": on, "wall_s": wall, "spans": len(tracing.spans())})
+        print(f"# phase 29 profiled run: {json.dumps(out[-1])}", flush=True)
+    return {"off_s": [r["wall_s"] for r in out if not r["recording"]],
+            "on_s": [r["wall_s"] for r in out if r["recording"]],
+            "spans_recorded": max(r["spans"] for r in out), **_pairs(out)}
+
+
+def _cost(runs, event):
+    """Recording's cost measured, from the runs in turns (``_pairs``),
+    beside the counters' and spans' host time estimated from the events'
+    counts and the loop times of ``_event_ns``."""
+    off = [r["wall_s"] for r in runs if not r["recording"]]
+    on = [r["wall_s"] for r in runs if r["recording"]]
+    spans = max(r["spans"] for r in runs)
+    return {"off_s": off, "on_s": on, "on_over_off": sum(on) / sum(off) - 1.0, **_pairs(runs),
+            "counter_events": runs[0]["counter_events"], "spans_recorded": spans,
+            # the always-on counters' host time, and what recording adds to it
+            "counters_est_s": runs[0]["counter_events"] * event["timed_off_ns"] * 1e-9,
+            "recording_est_s": spans * (event["timed_on_ns"] - event["timed_off_ns"]) * 1e-9}
+
+
+def run_tracing_cost(device="cuda", chains=CHAINS, dim=DIM, n_data=N_DATA, burnin=BURNIN,
+                     post=POST, gchains=GIBBS_CHAINS, sweeps=GIBBS_SWEEPS,
+                     gburnin=GIBBS_BURNIN):
+    """Phase 29: what span recording costs a whole chees_precond job and a
+    whole rats GibbsJob (``_traced_runs``), after a short warm job of each."""
+    import klara_tpu_torch as kt
+    from klara_tpu_torch.models.examples import rats_gibbs_model, synthetic_logistic_regression
+
+    target, _, _ = synthetic_logistic_regression(dim=dim, n_data=n_data, device=device)
+    s2 = kt.HMC(leapstep=0.05, nleaps=8, trajectory_length=2.0, jitter=0.9,
+                jitter_style="step", max_nleaps=64)
+
+    def chees(b=burnin, p=post):
+        job = _stage1_job(target, chains, dim, b, p)
+        gen = torch.Generator(device=device).manual_seed(42)
+        x0 = 0.1 * torch.randn(chains, dim, generator=gen, device=device)
+        return job.run_preconditioned(gen, x0, back_transform=False,
+                                      stage2_replace=dict(sampler=s2, traj_adaptation=False))
+
+    model, v0 = rats_gibbs_model(device=device)
+
+    def rats(n=sweeps):
+        job = kt.GibbsJob(model, {}, kt.MCRange(n_steps=n, burnin=gburnin), n_chains=gchains,
+                          monitor=GIBBS_MONITOR, device=device)
+        return job.run(torch.Generator(device=device).manual_seed(0), v0)
+
+    chees(4, 40)
+    rats(gburnin + 200)
+    event = _event_ns()
+    res = {"event_ns": event, "chees_precond": _cost(_traced_runs(chees, device), event),
+           "gibbs_rats": _cost(_traced_runs(rats, device), event)}
+    _profiled_runs(lambda: (chees(4, 40), rats(gburnin + 200)), device, (False, True))
+    res["profiled"] = {"chees_precond": _profiled_runs(chees, device),
+                       "gibbs_rats": _profiled_runs(rats, device)}
+    print(f"# phase 29 (the tracer's cost, recording off / on): {json.dumps(res)}", flush=True)
+    return res
+
+
 # ------------------------------------------------ phase 27: K2, keyed draws
 def _k2_reset():
     """Zero K2's launch counters and the graph counters (before a path's run)."""
@@ -3517,6 +3690,10 @@ def main():
         return
     if "--stage1-sensitivity" in sys.argv:
         stage1_sensitivity()
+        print(card)
+        return
+    if "--tracing-only" in sys.argv:
+        run_tracing_cost()
         print(card)
         return
     if "--examples-only" in sys.argv:

@@ -91,6 +91,7 @@ from klara_tpu_torch.samplers.hamiltonian import find_reasonable_step_size
 from klara_tpu_torch.samplers.hmc import HMC
 from klara_tpu_torch.samplers.nuts import NUTS
 from klara_tpu_torch.tuners.tuners import DualAveragingTuner, Tuner
+from klara_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -391,37 +392,43 @@ class GibbsJob:
 
     # ------------------------------------------------------------------ run
     def _run(self, generator, v0: Dict[str, Any], prebatched: bool):
+        """The run in the job report's phases (``utils.tracing``): ``setup``
+        (values, buffers and the stream), then ``sweeps`` (every sweep,
+        through the overflow check)."""
         n_post = self.mcrange.n_post
-        values = self._initial_values(v0, prebatched)
-        device = self._device_of(values)
-        dep_keys = [v.key for v in self._dependents]
-        diag_keys = (
-            [f"{k}.accept" for k in self.sweep if k in dep_keys]
-            if self.record_diagnostics
-            else []
-        )
+        with tracing.Phases() as phases:
+            phases.enter("setup")
+            values = self._initial_values(v0, prebatched)
+            device = self._device_of(values)
+            dep_keys = [v.key for v in self._dependents]
+            diag_keys = (
+                [f"{k}.accept" for k in self.sweep if k in dep_keys]
+                if self.record_diagnostics
+                else []
+            )
 
-        def buf_dtype(v):
-            if self._trace_dtype is not None and v.is_floating_point():
-                return self._trace_dtype
-            return v.dtype
+            def buf_dtype(v):
+                if self._trace_dtype is not None and v.is_floating_point():
+                    return self._trace_dtype
+                return v.dtype
 
-        buffers = {
-            k: torch.empty((n_post,) + tuple(values[k].shape), dtype=buf_dtype(values[k]),
-                           device=values[k].device)
-            for k in self.monitor
-            if self._opts[k]["destination"] == "nstate"
-        }
-        diag_buffers = {
-            k: torch.empty((n_post, self._local_chains), dtype=torch.float32, device=device)
-            for k in diag_keys
-        }
-        stream = self._stream(generator, device)
-        if graphs.sweeps_capturable(self):
-            values = graphs.sweep_blocks(self, values, stream, self.mcrange.n_steps, buffers)
-        else:
-            values = self._sweeps(values, stream, buffers, diag_buffers)
-        raise_on_overflow()
+            buffers = {
+                k: torch.empty((n_post,) + tuple(values[k].shape), dtype=buf_dtype(values[k]),
+                               device=values[k].device)
+                for k in self.monitor
+                if self._opts[k]["destination"] == "nstate"
+            }
+            diag_buffers = {
+                k: torch.empty((n_post, self._local_chains), dtype=torch.float32, device=device)
+                for k in diag_keys
+            }
+            stream = self._stream(generator, device)
+            phases.enter("sweeps", self.mcrange.n_steps)
+            if graphs.sweeps_capturable(self):
+                values = graphs.sweep_blocks(self, values, stream, self.mcrange.n_steps, buffers)
+            else:
+                values = self._sweeps(values, stream, buffers, diag_buffers)
+            raise_on_overflow()
         return GibbsChains(
             samples=buffers,
             final_values={k: values[k] for k in self._carry_keys()},
@@ -459,11 +466,12 @@ class GibbsJob:
         missing = [v.key for v in self.model.vertices if v.key not in v0]
         if missing:
             raise ValueError(f"v0 missing values for {missing}")
-        check_generators(generator, self.mesh)
-        self._open_writers()
-        with chain_context(self._block):
-            out = self._run(generator, v0, prebatched=False)
-        self._close_writers()
+        with tracing.job("GibbsJob.run"):
+            check_generators(generator, self.mesh)
+            self._open_writers()
+            with chain_context(self._block):
+                out = self._run(generator, v0, prebatched=False)
+            self._close_writers()
         return out
 
     def resume(self, generator, chains: GibbsChains, v0: Dict[str, Any]) -> GibbsChains:
@@ -478,11 +486,12 @@ class GibbsJob:
         missing = [v.key for v in self.model.vertices if v.key not in merged]
         if missing:
             raise ValueError(f"resume missing values for {missing}")
-        check_generators(generator, self.mesh)
-        self._open_writers()
-        with chain_context(self._block):
-            out = self._run(generator, merged, prebatched=True)
-        self._close_writers()
+        with tracing.job("GibbsJob.resume"):
+            check_generators(generator, self.mesh)
+            self._open_writers()
+            with chain_context(self._block):
+                out = self._run(generator, merged, prebatched=True)
+            self._close_writers()
         return out
 
     def _open_writers(self):

@@ -101,6 +101,7 @@ from klara_tpu_torch.ops import keyed, logreg
 from klara_tpu_torch.samplers.hamiltonian import leap
 from klara_tpu_torch.samplers.hmc import HMC
 from klara_tpu_torch.samplers.nuts import NUTS
+from klara_tpu_torch.utils import tracing
 
 STEPS_PER_BLOCK = 20     # MCJob sampling steps a block (and leap counts a prepass)
 SWEEPS_PER_BLOCK = 100   # conjugate Gibbs sweeps a block
@@ -148,6 +149,14 @@ def add_launches(rec: Launches) -> None:
 
 
 # -------------------------------------------------------------------- units
+def kind_of(key) -> str:
+    """The kind of a unit's key: the key itself (a name), its first item (a
+    (name, steps) pair), or ``sweeps`` (a Gibbs block's count of sweeps)."""
+    if isinstance(key, str):
+        return key
+    return key[0] if isinstance(key, tuple) else "sweeps"
+
+
 class Units:
     """One run's blocks of device work, each named by a key: ``run(key,
     body)`` calls ``body()`` eagerly the first time the key is met (on the
@@ -155,7 +164,11 @@ class Units:
     it into a CUDA graph the second time and replays it then and after.  On
     the CPU every call runs ``body()``.  ``body`` reads and writes only
     tensors that outlive the run's blocks, the same every time its key is
-    met."""
+    met.  The tracer's timed counters ``graphs.eager_blocks``,
+    ``graphs.captures`` and ``graphs.replays.<kind>`` (``kind_of``) count
+    the card's eager blocks, captures and replays and their host time;
+    ``graphs.eager_steps`` (counted by the callers whose blocks are whole
+    steps or sweeps) the steps the eager blocks ran."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -167,22 +180,29 @@ class Units:
             self._stream = torch.cuda.Stream(self.device)
             self._pool = torch.cuda.graph_pool_handle()
 
-    def run(self, key, body) -> None:
+    def run(self, key, body) -> bool:
+        """True where ``body`` ran as the card's eager first block of
+        ``key``."""
         global GRAPH_REPLAYS
         if not self.capture:
             body()
-            return
+            return False
         entry = self._graphs.get(key)
         if entry is None:
             if key not in self._seen:
                 self._seen.add(key)
-                self._warm(body)
-                return
-            entry = self._graphs[key] = self._capture(body)
+                with tracing.timed("graphs.eager_blocks", "eager_block"):
+                    self._warm(body)
+                return True
+            with tracing.timed("graphs.captures", "capture"):
+                entry = self._graphs[key] = self._capture(body)
         graph, rec = entry
-        self._launch(graph)
+        kind = kind_of(key)
+        with tracing.timed(f"graphs.replays.{kind}", f"replay.{kind}"):
+            self._launch(graph)
         add_launches(rec)
         GRAPH_REPLAYS += 1
+        return False
 
     def hold(self, tree):
         """Fresh copies of ``tree``'s tensors that outlive the run's blocks:
@@ -427,19 +447,23 @@ def sample(job, states, stream, start: int, stop: int, buffers):
 
     for s in range(start, stop, block):
         n = min(block, stop - s)
-        if kind == "block":
-            units.run(("block", n), lambda n=n: steps(n))
-        else:
-            units.run(("prepass", n), lambda n=n: prepass(n))
-            for n_max, n_min in bounds[:n].tolist():  # the block's one host read
-                units.run("head", head)
-                for k in range(n_max):
-                    masked = k >= n_min
-                    units.run("masked leap" if masked else "leap",
-                              lambda masked=masked: leap_body(masked))
-                units.run("tail", tail)
-        if staging is not None:
-            staging.drain(trace_of, *saved_rows(s, n, burnin, thinning))
+        with tracing.span("block"):
+            if kind == "block":
+                if units.run(("block", n), lambda n=n: steps(n)):
+                    tracing.count("graphs.eager_steps", n)
+            else:
+                units.run(("prepass", n), lambda n=n: prepass(n))
+                with tracing.timed("host_read.block_bounds"):  # the block's one host read
+                    counts = bounds[:n].tolist()
+                for n_max, n_min in counts:
+                    units.run("head", head)
+                    for k in range(n_max):
+                        masked = k >= n_min
+                        units.run("masked leap" if masked else "leap",
+                                  lambda masked=masked: leap_body(masked))
+                    units.run("tail", tail)
+            if staging is not None:
+                staging.drain(trace_of, *saved_rows(s, n, burnin, thinning))
     return static
 
 
@@ -476,6 +500,8 @@ def sweep_blocks(job, values, stream, n_steps: int, buffers):
 
     for s in range(0, n_steps, block):
         n = min(block, n_steps - s)
-        units.run(n, lambda n=n: sweeps(n))
-        staging.drain(lambda key, buf: buffers[key], *saved_rows(s, n, burnin, thinning))
+        with tracing.span("block"):
+            if units.run(n, lambda n=n: sweeps(n)):
+                tracing.count("graphs.eager_steps", n)
+            staging.drain(lambda key, buf: buffers[key], *saved_rows(s, n, burnin, thinning))
     return static

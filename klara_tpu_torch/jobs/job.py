@@ -50,7 +50,6 @@ rank alone writes (``parallel.mesh.gather_to_first``).
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Optional, Sequence
 
 import torch
@@ -87,6 +86,7 @@ from klara_tpu_torch.parallel.mesh import (
 from klara_tpu_torch.samplers.base import Info, Sampler, draw_uniform
 from klara_tpu_torch.samplers.hmc import jitter_fraction
 from klara_tpu_torch.tuners.tuners import DualAveragingTuner, Tuner
+from klara_tpu_torch.utils import tracing
 
 
 # the 13 monitored slots: {log, gradlog, tensorlog, dtensorlog} ×
@@ -161,7 +161,9 @@ def mass_update(states, i: int, burnin: int, mass_period: int):
 
 
 def _f32(x, like):
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+    # a host scalar copied to the card: the copy waits for the device's queue
+    with tracing.timed("host_read.chees_scalars"):
+        return torch.tensor(x, dtype=torch.float32, device=like.device)
 
 
 def chees_update(states, prev_pos, infos: Info, i: int, frac_shared, burnin: int,
@@ -212,7 +214,8 @@ def chees_update(states, prev_pos, infos: Info, i: int, frac_shared, burnin: int
 
 def _sync(device):
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        with tracing.timed("host_read.sync"):
+            torch.cuda.synchronize(device)
 
 
 @dataclasses.dataclass
@@ -412,7 +415,9 @@ class MCJob:
     def _checkin(self, x0):
         """The initial value must lie inside the target's support."""
         lt0 = self.target.logdensity(x0[:1])
-        if not bool(torch.isfinite(lt0).all()):
+        with tracing.timed("host_read.checkin"):
+            finite = bool(torch.isfinite(lt0).all())
+        if not finite:
             raise ValueError(
                 f"log-target not finite at the initial value "
                 f"(logdensity={float(lt0[0])}): initial value out of support"
@@ -442,18 +447,21 @@ class MCJob:
         states (pre-step positions ``prev_pos``)."""
         sampler, burnin = self.sampler, self.mcrange.burnin
         if not sampler.self_tuning:
-            states = tune_update(
-                self.tuner, states, infos, sampler.tuner_statistic,
-                self.pooled_tuning, burnin,
-            )
+            with tracing.timed("adapt.tune"):
+                states = tune_update(
+                    self.tuner, states, infos, sampler.tuner_statistic,
+                    self.pooled_tuning, burnin,
+                )
         if self.mass_adaptation and hasattr(states, "inv_mass"):
-            states = mass_update(states, i, burnin, self.mass_period)
+            with tracing.timed("adapt.mass"):
+                states = mass_update(states, i, burnin, self.mass_period)
         if self.traj_adaptation and hasattr(states, "log_traj"):
-            states = chees_update(
-                states, prev_pos, infos, i, frac_shared, burnin, self.traj_lr,
-                self.traj_start_frac, getattr(sampler, "max_nleaps", None),
-                getattr(sampler, "jitter", 0.0),
-            )
+            with tracing.timed("adapt.chees"):
+                states = chees_update(
+                    states, prev_pos, infos, i, frac_shared, burnin, self.traj_lr,
+                    self.traj_start_frac, getattr(sampler, "max_nleaps", None),
+                    getattr(sampler, "jitter", 0.0),
+                )
         return states
 
     def _shared_jitter(self) -> bool:
@@ -501,22 +509,24 @@ class MCJob:
         step_sampler = self._step_sampler()
         self._check_sites(states)
         for i in range(start, stop):
-            prev_pos = states.position
-            at = stream.at(step=i)
-            frac = self._shared_fraction(at, states.log_traj) if shared else None
-            states, infos = self._under_jitter(
-                states, frac, lambda st: step_sampler.step(st, target, stream=at))
-            if adapt:
-                states = self.adapt(prev_pos, states, infos, i, 1.0 if frac is None else frac)
-            if i >= burnin and (i - burnin) % thinning == 0:
-                if buffers is not None:
-                    self._write(buffers, (i - burnin) // thinning, states, infos)
-                if ring is not None:
-                    ring.save(self._fields(states, infos))
-            if ring is not None and ((i + 1 - start) % ring.rows == 0 or i + 1 == stop):
-                self._flush_ring(ring)
-            if self.verbose and (i + 1) % self.progress_period == 0:
-                self._report(i, infos)
+            with tracing.span("step"):
+                prev_pos = states.position
+                at = stream.at(step=i)
+                frac = self._shared_fraction(at, states.log_traj) if shared else None
+                states, infos = self._under_jitter(
+                    states, frac, lambda st: step_sampler.step(st, target, stream=at))
+                if adapt:
+                    states = self.adapt(prev_pos, states, infos, i,
+                                        1.0 if frac is None else frac)
+                if i >= burnin and (i - burnin) % thinning == 0:
+                    if buffers is not None:
+                        self._write(buffers, (i - burnin) // thinning, states, infos)
+                    if ring is not None:
+                        ring.save(self._fields(states, infos))
+                if ring is not None and ((i + 1 - start) % ring.rows == 0 or i + 1 == stop):
+                    self._flush_ring(ring)
+                if self.verbose and (i + 1) % self.progress_period == 0:
+                    self._report(i, infos)
         return states
 
     def _check_sites(self, states):
@@ -577,12 +587,16 @@ class MCJob:
     def run(self, generator=None, x0=None) -> Chain:
         """Run all ``mcrange.n_steps`` steps, adapting during burnin and
         saving the post-burnin draws to ``destination``."""
-        check_generators(generator, self.mesh)
-        stream = self._run_stream(generator, self._run_device(generator, x0))
-        x0 = self._start(stream, x0)
-        self._open_writer()
-        with chain_context(self._block):
-            return self._drive(self._init_states(stream, x0), stream)
+        with tracing.job("MCJob.run"), tracing.Phases() as phases:
+            check_generators(generator, self.mesh)
+            stream = self._run_stream(generator, self._run_device(generator, x0))
+            x0 = self._start(stream, x0)
+            self._open_writer()
+            with chain_context(self._block):
+                phases.enter("init")
+                states = self._init_states(stream, x0)
+                phases.enter("steps", self.mcrange.n_steps)
+                return self._drive(states, stream)
 
     def resume(self, generator, chain: Chain) -> Chain:
         """Another ``mcrange.n_steps`` steps from ``chain.final_state`` (a live
@@ -591,12 +605,14 @@ class MCJob:
         run appends its draws to the files.  On a mesh the state may hold
         the global chains (a reloaded checkpoint: this rank takes its block)
         or this rank's."""
-        check_generators(generator, self.mesh)
-        states = take_block(chain.final_state, self._block)
-        stream = self._run_stream(generator, states.position.device)
-        self._open_writer()
-        with chain_context(self._block):
-            return self._drive(states, stream)
+        with tracing.job("MCJob.resume"), tracing.Phases() as phases:
+            check_generators(generator, self.mesh)
+            states = take_block(chain.final_state, self._block)
+            stream = self._run_stream(generator, states.position.device)
+            self._open_writer()
+            with chain_context(self._block):
+                phases.enter("steps", self.mcrange.n_steps)
+                return self._drive(states, stream)
 
     def _start(self, stream, x0):
         """This rank's initial positions: ``x0`` prepared (``_prepare_x0``;
@@ -658,32 +674,37 @@ class MCJob:
         finalize) and sampling (no adaptation code) timed apart.  Returns
         ``(chain, {'warmup_seconds', 'sampling_seconds'})``; on a CUDA device
         each phase ends in a synchronise.  Output to 'nstate' or 'none' only:
-        ``run`` streams csv."""
+        ``run`` streams csv.  The timings are the clock reads of the job
+        report's phases (``utils.tracing``): ``init`` (the sampler's init,
+        the step-size search among it) and ``warmup`` make up
+        ``warmup_seconds``, ``sampling`` is ``sampling_seconds``."""
         if self.destination == "csv":
             raise ValueError("run_phased supports destination 'nstate'/'none' only")
-        check_generators(generator, self.mesh)
-        stream = self._run_stream(generator, self._run_device(generator, x0))
-        x0 = self._start(stream, x0)
-        device = x0.device
-        _sync(device)
-        t0 = time.perf_counter()
-        with chain_context(self._block):
-            states = self._init_states(stream, x0)
-            burnin = self.mcrange.burnin
-            if burnin > 0:
-                states = self._loop(states, stream, 0, burnin, True)
-                if hasattr(states, "tune") and not self.sampler.self_tuning:
-                    states = states._replace(tune=self.tuner.finalize(states.tune))
+        with tracing.job("MCJob.run_phased"), tracing.Phases() as phases:
+            check_generators(generator, self.mesh)
+            stream = self._run_stream(generator, self._run_device(generator, x0))
+            x0 = self._start(stream, x0)
+            device = x0.device
             _sync(device)
-            t1 = time.perf_counter()
-            buffers = ({}, {})
-            states = self._sample(states, stream, burnin, self.mcrange.n_steps,
-                                  buffers if self.destination == "nstate" else None)
-        _sync(device)
-        raise_on_overflow()
-        t2 = time.perf_counter()
+            t0 = phases.enter("init")
+            with chain_context(self._block):
+                states = self._init_states(stream, x0)
+                burnin = self.mcrange.burnin
+                phases.enter("warmup", burnin)
+                if burnin > 0:
+                    states = self._loop(states, stream, 0, burnin, True)
+                    if hasattr(states, "tune") and not self.sampler.self_tuning:
+                        states = states._replace(tune=self.tuner.finalize(states.tune))
+                _sync(device)
+                t1 = phases.enter("sampling", self.mcrange.n_steps - burnin)
+                buffers = ({}, {})
+                states = self._sample(states, stream, burnin, self.mcrange.n_steps,
+                                      buffers if self.destination == "nstate" else None)
+            _sync(device)
+            raise_on_overflow()
+            t2 = phases.close()
         chain = self._squeeze(self._chain(buffers, states))
-        return chain, {"warmup_seconds": t1 - t0, "sampling_seconds": t2 - t1}
+        return chain, {"warmup_seconds": (t1 - t0) / 1e9, "sampling_seconds": (t2 - t1) / 1e9}
 
     # ---------------------------------------- dense ensemble preconditioning
     def run_preconditioned(self, generator=None, x0=None, ridge: float = 1e-6,
@@ -719,25 +740,28 @@ class MCJob:
             self,
             mcrange=MCRange(n_steps=self.mcrange.burnin + 1, burnin=self.mcrange.burnin),
         )
-        c1, t1 = stage1.run_phased(generator, x0)
-        # the trace may be stored in bf16: covariance, Cholesky and the
-        # stage-2 start come back to f32
-        x_end = c1.value[-1].to(torch.float32)
-        stage1_state = c1.final_state
-        del c1
-        with chain_context(self._block):
-            chol = ensemble_cholesky(x_end, ridge)
-            # stage 2 starts, as any run, from the positions of every chain
-            y0 = gather_chains(torch.linalg.solve_triangular(chol, x_end.T, upper=False).T)
-
-        repl = dict(stage2_replace or {})
-        if "step_size" not in repl and self.step_size is None:
-            repl["step_size"] = float(x_end.shape[1]) ** -0.25
-        wjob = dataclasses.replace(self, target=whiten_target(self.target, chol), **repl)
-        if warm_stage2:
-            warm, _ = wjob.run_phased(generator, y0)
-            del warm
-        chain, t2 = wjob.run_phased(generator, y0)
+        with tracing.job("MCJob.run_preconditioned"), tracing.Phases() as phases:
+            phases.enter("stage1")
+            c1, t1 = stage1.run_phased(generator, x0)
+            phases.enter("precondition")
+            # the trace may be stored in bf16: covariance, Cholesky and the
+            # stage-2 start come back to f32
+            x_end = c1.value[-1].to(torch.float32)
+            stage1_state = c1.final_state
+            del c1
+            with chain_context(self._block):
+                chol = ensemble_cholesky(x_end, ridge)
+                # stage 2 starts, as any run, from the positions of every chain
+                y0 = gather_chains(torch.linalg.solve_triangular(chol, x_end.T, upper=False).T)
+            repl = dict(stage2_replace or {})
+            if "step_size" not in repl and self.step_size is None:
+                repl["step_size"] = float(x_end.shape[1]) ** -0.25
+            wjob = dataclasses.replace(self, target=whiten_target(self.target, chol), **repl)
+            phases.enter("stage2")
+            if warm_stage2:
+                warm, _ = wjob.run_phased(generator, y0)
+                del warm
+            chain, t2 = wjob.run_phased(generator, y0)
         if back_transform:
             chain.samples["value"] = _back_transform(chain.samples["value"], chol)
         timings = {

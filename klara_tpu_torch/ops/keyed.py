@@ -110,12 +110,14 @@ import ctypes
 import math
 import operator
 import struct
+import time
 from typing import Any, NamedTuple
 
 import numpy as np
 import torch
 
 from klara_tpu_torch.ops import _build
+from klara_tpu_torch.utils import tracing
 
 UNIFORM, NORMAL, GAMMA, POISSON, BINOMIAL = range(5)
 MODES = {"uniform": UNIFORM, "normal": NORMAL, "gamma": GAMMA, "poisson": POISSON,
@@ -762,7 +764,8 @@ def raise_on_overflow() -> None:
     if an element reached the cap of its rejection loop (and reset)."""
     while _PENDING:
         count = overflow_counter(_PENDING.pop())
-        n = int(count[0])
+        with tracing.timed("host_read.overflow"):
+            n = int(count[0])
         if n:
             count.zero_()
             raise RuntimeError(f"keyed draws: {n} element(s) reached the cap of their "
@@ -797,9 +800,12 @@ def draws(stream: KeyedStream, mode, shape, dtype, p0=None, p1=None, want_calls=
     synchronisation (the overflow counter stays on the device).  CPU
     streams take ``draws_reference`` and raise at once if an element
     reached its cap.  A tensor parameter or step on another device than the
-    stream's key raises on either path."""
+    stream's key raises on either path.  The call's host time goes to the
+    tracer's ``k2.host_ns``."""
+    t0 = time.perf_counter_ns()
     if stream._device.type == "cpu":
         out, calls, overflow = draws_reference(stream, mode, shape, dtype, p0, p1)
+        tracing.add("k2.host_ns", time.perf_counter_ns() - t0)
         if overflow:
             raise RuntimeError(f"keyed draws: {overflow} element(s) reached the cap of "
                                "their rejection loop")
@@ -816,4 +822,5 @@ def draws(stream: KeyedStream, mode, shape, dtype, p0=None, p1=None, want_calls=
     KERNEL_LAUNCHES += 1
     LAUNCHES_BY_MODE[_MODE_NAMES[mode]] += 1
     _PENDING.add(stream._device)
+    tracing.add("k2.host_ns", time.perf_counter_ns() - t0)
     return out, calls

@@ -34,8 +34,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 
 import torch
+
+from klara_tpu_torch.utils import tracing
 
 MAX_DIM = 128   # widest accumulator tile the kernel instantiates
 TILE_N = 32     # data rows per tile image
@@ -221,9 +224,12 @@ def logreg_value_grad(P, X, v, prior_var, passes=3, prepared=None):
     raise; CPU tensors take ``logreg_value_grad_reference``.  ``prepared``
     is ``prepare_x(X, y)``, made once per target by the caller: the kernel
     needs it, the plain version does not.  ``passes``: 3 or 1 TF32 passes
-    per product."""
+    per product.  The call's host time goes to the tracer's ``k1.host_ns``."""
+    t0 = time.perf_counter_ns()
     if P.device.type == "cpu":
-        return logreg_value_grad_reference(P, X, v, prior_var)
+        out = logreg_value_grad_reference(P, X, v, prior_var)
+        tracing.add("k1.host_ns", time.perf_counter_ns() - t0)
+        return out
     global KERNEL_LAUNCHES
     _check(P, X, v, passes, prepared)
     from klara_tpu_torch.ops import _build
@@ -245,4 +251,5 @@ def logreg_value_grad(P, X, v, prior_var, passes=3, prepared=None):
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {rc}")
     KERNEL_LAUNCHES += 1
+    tracing.add("k1.host_ns", time.perf_counter_ns() - t0)
     return value, grad

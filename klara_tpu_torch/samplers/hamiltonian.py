@@ -19,6 +19,7 @@ from klara_tpu_torch.models.graph import chain_sum
 from klara_tpu_torch.ops.keyed import INIT_MOMENTUM, MOMENTUM
 from klara_tpu_torch.samplers.base import chain_view, draw_normal, per_chain_step, step_stream
 from klara_tpu_torch.tuners.tuners import DualAveragingTuner
+from klara_tpu_torch.utils import tracing
 
 
 def hamiltonian(logtarget, momentum, inv_mass=None):
@@ -77,7 +78,9 @@ def leapfrog(target, pp: PhasePoint, eps, n_steps, inv_mass=None) -> PhasePoint:
     if isinstance(n_steps, int):
         n_max, n_min = n_steps, n_steps
     else:
-        n_max, n_min = (int(t) for t in torch.stack([n_steps.max(), n_steps.min()]).tolist())
+        with tracing.timed("host_read.leapfrog_bounds"):
+            bounds = torch.stack([n_steps.max(), n_steps.min()]).tolist()
+        n_max, n_min = (int(t) for t in bounds)
     for k in range(n_max):
         pp = leap(target, pp, eps, inv_mass, None if k < n_min else k < n_steps)
     return pp
@@ -109,7 +112,9 @@ def find_reasonable_step_size(target, position, generator=None, max_iter=100,
     factor = torch.pow(2.0, a)
     active = a * r > -a * math.log(2.0)
     for _ in range(max_iter):
-        if not bool(active.any()):
+        with tracing.timed("host_read.step_search"):
+            searching = bool(active.any())
+        if not searching:
             break
         eps = torch.where(active, eps * factor, eps)
         active = active & (a * ratio_for(eps) > -a * math.log(2.0))
