@@ -198,8 +198,13 @@ Phases, each of which raises on failure (the script then exits non-zero):
    one run key, in captured blocks (``jobs/graphs.py``) and in the eager
    loop: 200 stage-2 steps of chees_precond (phase 4's job and final state)
    and of nuts_precond (phase 5's), and 500 conjugate rats sweeps from phase
-   9's final values.  Traces, final states and the K1 and K2 launch counts
-   must be equal, bit for bit, and each graph form must replay a graph.
+   9's final values; and 60 warmup steps of chees_precond's stage 1 from
+   its init (pooled dual averaging, mass, ChEES from step 30, the shared
+   jitter), its transitions replayed as units (``graphs.warm``) and in the
+   eager loop, the hooks keeping references to what they are handed and
+   return, read after both runs.  Traces (for the warmup, the kept tensors
+   of every step), final states and the K1 and K2 launch counts must be
+   equal, bit for bit, and each graph form must replay a graph.
    Prints, both ways, ms a step or sweep (host clock to a synchronise), the
    graph form's steady block time (CUDA events at the block ends, the
    median block after the first two), the graphs captured and replayed, the
@@ -322,6 +327,7 @@ GIBBS_PROFILE_SWEEPS = 50  # phase 9's profiled window (kernels per sweep)
 # the profiled windows beside them (the first block of each is eager)
 GRAPH_WINDOW_STEPS, GRAPH_WINDOW_SWEEPS = 200, 500
 GRAPH_PROFILE_STEPS, GRAPH_PROFILE_SWEEPS = 60, 300
+GRAPH_WARMUP_STEPS, GRAPH_WARMUP_PROFILE_STEPS = 60, 20  # stage 1's warmup, both forms
 # published BUGS posterior means of the rats example, with the gate's width
 BUGS_MEANS = {"alpha_c": (242.5, 1.0), "beta_c": (6.19, 0.1)}
 NESTED_SWEEPS, NESTED_BURNIN = 2000, 200
@@ -1506,14 +1512,58 @@ def _graph_and_eager_mcjob(path, wjob, state, gen, steps, device, profile_steps)
     return g, e
 
 
+def _graph_and_eager_warmup(device, steps, profile_steps, chains, dim, n_data):
+    """``steps`` warmup steps of chees_precond's stage 1 from its init, once
+    with the transitions replayed as graph units (``graphs.warm``) and once
+    in the eager loop, from one state and run key.  The hooks keep
+    references to what they are handed and return, as the benchmark's
+    recording job does: the kept tensors of every step are the trace, read
+    after the run."""
+    from klara_tpu_torch.jobs import graphs
+    from klara_tpu_torch.models.examples import synthetic_logistic_regression
+    from klara_tpu_torch.parallel.mesh import chain_context
+
+    target, _, _ = synthetic_logistic_regression(dim=dim, n_data=n_data, device=device)
+    job = _stage1_job(target, chains, dim, BURNIN, 1)
+    adapt, kept = job.adapt, []
+
+    def keeping(prev_pos, states, infos, i, frac_shared=1.0):
+        new = adapt(prev_pos, states, infos, i, frac_shared)
+        kept.append((prev_pos, states, infos, frac_shared, new))
+        return new
+
+    job.adapt = keeping
+    gen = torch.Generator(device=device).manual_seed(42)
+    x0 = 0.1 * torch.randn(chains, dim, generator=gen, device=device)
+    stream = job._run_stream(gen, x0.device)
+    with chain_context(job._block):
+        state = job._init_states(stream, job._start(stream, x0))
+
+    def form(warmup):
+        def run(n):
+            kept.clear()
+            with chain_context(job._block):
+                end = warmup(n)
+            return _flat("final", end) + _flat("trace", list(kept))
+        return run
+
+    g_out, g = _one_form(form(lambda n: graphs.warm(job, state, stream, 0, n)), steps, device,
+                         profile_steps)
+    e_out, e = _one_form(form(lambda n: job._loop(state, stream, 0, n, True)), steps, device,
+                         profile_steps)
+    _compare_forms("chees_warmup", g_out, e_out, g, e)
+    return g, e
+
+
 def run_graphs_vs_eager(chees_end, nuts_end, gibbs_parts, device="cuda",
                         steps=GRAPH_WINDOW_STEPS, sweeps=GRAPH_WINDOW_SWEEPS):
     """Phase 28: the three captured paths, each run twice from one state and
     one run key, in captured blocks and in the eager loop: the stage-2
     samplers of chees_precond (HMC, dynamic leap counts, shared jitter) and
-    nuts_precond (static NUTS) for ``steps`` steps, and the conjugate rats
-    sweep for ``sweeps`` sweeps from phase 9's final values.  Traces, final
-    states and K1 and K2 launch counts must be equal, bit for bit."""
+    nuts_precond (static NUTS) for ``steps`` steps, stage 1's warmup of
+    chees_precond (``GRAPH_WARMUP_STEPS``), and the conjugate rats sweep for
+    ``sweeps`` sweeps from phase 9's final values.  Traces, final states and
+    K1 and K2 launch counts must be equal, bit for bit."""
     import klara_tpu_torch as kt
     from klara_tpu_torch.jobs import graphs
 
@@ -1523,6 +1573,10 @@ def run_graphs_vs_eager(chees_end, nuts_end, gibbs_parts, device="cuda",
         g, e = _graph_and_eager_mcjob(path, wjob, state, gen, steps, device,
                                       GRAPH_PROFILE_STEPS)
         res[path] = {"graph": g, "eager": e, "block_steps": graphs.STEPS_PER_BLOCK}
+    chains, dim = chees_end[1].position.shape
+    g, e = _graph_and_eager_warmup(device, GRAPH_WARMUP_STEPS, GRAPH_WARMUP_PROFILE_STEPS,
+                                   chains, dim, N_DATA)
+    res["chees_warmup"] = {"graph": g, "eager": e, "block_steps": 1}  # no block: a step
 
     gjob, gchains, v0, ggen = gibbs_parts
 

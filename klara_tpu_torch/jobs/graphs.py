@@ -37,13 +37,23 @@ eagerly, which is how the tests hold them to the per-step loop):
   spread of leap counts, which the job does not bound; ``PERF.md`` gives
   the copies' cost.  The prepass's draw is the step's jitter (the start reads it back
   from the prepass's buffer), so K2 launches as often as in the eager loop.
+* ``MCJob.run_phased``'s warmup with that ``HMC`` (``warm``): a step replays
+  the same units under kinds of their own (``warmup head``, ``warmup leap``,
+  ``warmup masked leap``, ``warmup tail``), its start drawing the shared
+  jitter and leaving the step's (max, min) leap count in a buffer the host
+  reads once (the hooks change ε and λ every step, so no prepass can draw
+  a block's counts ahead).  The adaptation hooks (``MCJob.adapt``: tune,
+  mass, ChEES) then run eagerly between steps, on fresh copies of the
+  step's new tensors: an override of ``adapt`` may keep what it is handed,
+  which a later replay must not write over.  What the hooks change is
+  copied back into the units' state.
 
-What stays eager, each because it is out of this slice's scope: warmup with
-its adaptation hooks (``tune_update``, ``mass_update``, ``chees_update``)
-and ``MCJob.run``'s steps, which adapt; nested Gibbs blocks (a host read a
-nested step); the looped NUTS tree (a host read a doubling); HMC with
-per-chain jitter; MALA and the rest of the sampler zoo; ``verbose`` and csv
-runs.  A job whose mesh has a param dimension of more than one rank stays
+What stays eager, each because it is out of this slice's scope: the
+adaptation hooks themselves, and ``MCJob.run``'s steps, which adapt;
+warmup with any sampler but that ``HMC`` (NUTS's among them); nested Gibbs
+blocks (a host read a nested step); the looped NUTS tree (a host read a
+doubling); HMC with per-chain jitter; MALA and the rest of the sampler zoo;
+``verbose`` and csv runs.  A job whose mesh has a param dimension of more than one rank stays
 eager too: its target (``param_sharded_logreg_target``) runs collectives in
 every evaluation, which a capture would bake into the graph (gloo refuses
 them under capture; NCCL's would replay uncounted in ``COLLECTIVES``).
@@ -85,10 +95,11 @@ Where trouble lies, and what is done about it:
   but runs nothing, so the counts a capture adds are recorded and taken back
   (``launches_of``), and every replay adds them (``add_launches``): the
   counts equal the eager loop's.
-* Memory.  A run's graphs share one pool, which holds one block's
+* Memory.  A phase's graphs share one pool, which holds one block's
   intermediates; the staging buffers hold a block's saved rows, and HMC's
   trajectory between replays lives in tensors made by its first, eager
-  step (``Units.hold``).
+  step (``Units.hold``), as do the warmup's accept flags and statistics
+  between a step's end and its hooks.
 """
 
 from __future__ import annotations
@@ -304,6 +315,9 @@ def _tensors(tree, out):
     elif isinstance(tree, (tuple, list)):
         for t in tree:
             _tensors(t, out)
+    elif isinstance(tree, dict):
+        for t in tree.values():
+            _tensors(t, out)
     return out
 
 
@@ -314,6 +328,8 @@ def _rebuild(tree, it):
         return type(tree)(*(_rebuild(t, it) for t in tree))
     if isinstance(tree, (tuple, list)):
         return type(tree)(_rebuild(t, it) for t in tree)
+    if isinstance(tree, dict):
+        return {k: _rebuild(t, it) for k, t in tree.items()}
     return tree
 
 
@@ -364,6 +380,58 @@ def sampling_kind(job):
     return None
 
 
+class _Transition:
+    """HMC's transition as graph units over a run's state ``static``, drawn at
+    the device step ``counter``: ``begin`` (its start: the momentum draw, H
+    there and the leap counts, into the carry), ``leap`` (one leapfrog step
+    of the carry, masked where the chains' counts differ) and ``finish``
+    (its end: the accept draw; returns the new state and infos).  The carry,
+    the trajectory between replays ([start or last point, H at start,
+    counts, frac]), is made by the first ``begin``, always eager, and
+    outlives the run's blocks."""
+
+    def __init__(self, job, units, static, stream, counter):
+        self.job, self.units, self.static = job, units, static
+        self.stream, self.counter = stream, counter
+        self.sampler = job._step_sampler()
+        self.carry = []
+        self.leap_k = torch.zeros((), dtype=torch.int64, device=counter.device)  # leap in the step
+
+    def begin(self, frac):
+        """``frac``: the step's shared jitter fraction (0-d) or None; returns
+        the leap counts."""
+        at = self.stream.at(step=self.counter)
+        _, begun = self.job._under_jitter(
+            self.static, frac, lambda st: (st, self.sampler.begin(st, at)))
+        if self.carry:
+            _copy_into(self.carry, list(begun))
+        else:
+            self.carry.extend(self.units.hold(t) for t in begun)
+        self.leap_k.zero_()
+        return begun[2]
+
+    def leap(self, masked: bool):
+        pp, _, nleaps, _ = self.carry
+        live = self.leap_k < nleaps if masked else None
+        st = self.static
+        _copy_into(pp, leap(self.job.target, pp, st.tune.step, st.inv_mass, live))
+        self.leap_k.add_(1)
+
+    def finish(self):
+        pp, h0, nleaps, frac = self.carry
+        # the jitter's log_traj offset reached the leap counts alone
+        return self.sampler.finish(self.static, pp, h0, nleaps, frac,
+                                   self.stream.at(step=self.counter))
+
+    def replay(self, prefix: str, n_max: int, n_min: int) -> None:
+        """A step's ``n_max`` leaps: units of kind ``<prefix>leap`` for the
+        first ``n_min``, ``<prefix>masked leap`` for the rest."""
+        for k in range(n_max):
+            masked = k >= n_min
+            self.units.run(f"{prefix}masked leap" if masked else f"{prefix}leap",
+                           lambda masked=masked: self.leap(masked))
+
+
 def sample(job, states, stream, start: int, stop: int, buffers):
     """Steps [start, stop) of ``job``'s sampling phase (no adaptation) in
     captured blocks, from ``stream`` at those steps; saved draws go to
@@ -398,8 +466,7 @@ def sample(job, states, stream, start: int, stop: int, buffers):
         fracs = torch.ones(block, dtype=static.log_traj.dtype, device=device)
         bounds = torch.zeros(block, 2, dtype=torch.int32, device=device)
         slot = torch.zeros(1, dtype=torch.int64, device=device)    # the step's row in the block
-        leap_k = torch.zeros((), dtype=torch.int64, device=device)  # the leap's index in the step
-        carry = []  # the trajectory between replays: [start or last point, H at start, counts, frac]
+        tr = _Transition(job, units, static, stream, counter)
 
         def prepass(n):
             for k in range(n):
@@ -414,25 +481,10 @@ def sample(job, states, stream, start: int, stop: int, buffers):
             slot.zero_()
 
         def head():
-            frac = fracs.index_select(0, slot).reshape(()) if shared else None
-            _, begun = job._under_jitter(
-                static, frac, lambda st: (st, sampler.begin(st, stream.at(step=counter))))
-            if carry:
-                _copy_into(carry, list(begun))
-            else:  # the first head, always eager: the carry outlives the run's blocks
-                carry.extend(units.hold(t) for t in begun)
-            leap_k.zero_()
-
-        def leap_body(masked):
-            pp, _, nleaps, _ = carry
-            live = leap_k < nleaps if masked else None
-            _copy_into(pp, leap(target, pp, static.tune.step, static.inv_mass, live))
-            leap_k.add_(1)
+            tr.begin(fracs.index_select(0, slot).reshape(()) if shared else None)
 
         def tail():
-            pp, h0, nleaps, frac = carry
-            # the jitter's log_traj offset reached the leap counts alone
-            st, infos = sampler.finish(static, pp, h0, nleaps, frac, stream.at(step=counter))
+            st, infos = tr.finish()
             save(slot, st, infos)
             counter.add_(1)
             slot.add_(1)
@@ -457,14 +509,93 @@ def sample(job, states, stream, start: int, stop: int, buffers):
                     counts = bounds[:n].tolist()
                 for n_max, n_min in counts:
                     units.run("head", head)
-                    for k in range(n_max):
-                        masked = k >= n_min
-                        units.run("masked leap" if masked else "leap",
-                                  lambda masked=masked: leap_body(masked))
+                    tr.replay("", n_max, n_min)
                     units.run("tail", tail)
             if staging is not None:
                 staging.drain(trace_of, *saved_rows(s, n, burnin, thinning))
     return static
+
+
+def warm(job, states, stream, start: int, stop: int):
+    """Warmup steps [start, stop) of ``job`` (``sampling_kind`` 'leaps') from
+    ``stream`` at those steps: a step replays its transition as units (its
+    start, which also draws the shared jitter and leaves the step's batch
+    max and min leap count in a buffer the host reads once; n_max leaps; its
+    end), then runs the adaptation hooks, ``job.adapt``, eagerly.  The hooks
+    get fresh tensors, never a unit's: an override may keep what it is
+    handed, and the next replay would write over a unit's.  Returns the
+    adapted state after the last step: bit for bit ``job._loop(states,
+    stream, start, stop, True)``'s."""
+    job._check_sites(states)
+    shared = job._shared_jitter()
+    device = states.position.device
+    units = Units(device)
+    static = _clone(states)
+    counter = torch.full((), start, dtype=torch.int64, device=device)
+    tr = _Transition(job, units, static, stream, counter)
+    frac = torch.ones((), dtype=static.log_traj.dtype, device=device)  # the shared jitter
+    bounds = torch.zeros(2, dtype=torch.int32, device=device)
+    kept = []   # the end's new tensors that neither the state nor the carry holds
+    ended = []  # the end's (state, infos), and where each of its tensors lies after it
+
+    def head():
+        f = None
+        if shared:
+            f = job._shared_fraction(stream.at(step=counter), static.log_traj)
+            frac.copy_(f)
+        nleaps = tr.begin(f)
+        bounds.copy_(torch.stack([nleaps.max(), nleaps.min()]))
+
+    def tail():
+        out = tr.finish()
+        old, new = _tensors(static, []), _tensors(out[0], [])
+        where = {id(n): ("hooks", k) if n is t else ("static", k)
+                 for k, (t, n) in enumerate(zip(old, new))}
+        for k, t in enumerate(_tensors(tr.carry, [])):
+            where.setdefault(id(t), ("carry", k))
+        fresh = []
+        for t in _tensors(out, []):
+            if id(t) not in where:
+                where[id(t)] = ("kept", len(fresh))
+                fresh.append(t)
+        if kept:
+            _copy_into(kept, fresh)
+        else:  # the first end, always eager
+            kept.extend(units.hold(t) for t in fresh)
+        ended[:] = [out, [where[id(t)] for t in _tensors(out, [])]]
+        counter.add_(1)
+        _copy_into(static, out[0])
+
+    def handed(cur):
+        """The end's (state, infos) as the eager step gives them: a copy of
+        each new tensor (one copy where the end gave one tensor twice), the
+        hooks' own tensors where the step kept theirs."""
+        out, plan = ended
+        lies = {"hooks": _tensors(cur, []), "static": _tensors(static, []),
+                "carry": _tensors(tr.carry, []), "kept": kept}
+        copies = {}
+        for kind, k in plan:
+            if kind != "hooks" and (kind, k) not in copies:
+                copies[kind, k] = lies[kind][k].clone()
+        return _rebuild(out, iter([lies[kind][k] if kind == "hooks" else copies[kind, k]
+                                   for kind, k in plan]))
+
+    cur = states
+    for i in range(start, stop):
+        with tracing.span("step"):
+            units.run("warmup head", head)
+            with tracing.timed("host_read.leapfrog_bounds"):  # the step's one host read
+                n_max, n_min = bounds.tolist()
+            tr.replay("warmup ", n_max, n_min)
+            units.run("warmup tail", tail)
+            post, infos = handed(cur)
+            new = job.adapt(cur.position, post, infos, i, frac.clone() if shared else 1.0)
+            # what the hooks replaced goes back into the units' state
+            moved = [(d, n) for d, n, p in zip(_tensors(static, []), _tensors(new, []),
+                                               _tensors(post, [])) if n is not p]
+            _copy_into([d for d, _ in moved], [n for _, n in moved])
+            cur = new
+    return cur
 
 
 # ------------------------------------------------------------------- Gibbs

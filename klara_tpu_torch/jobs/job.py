@@ -671,7 +671,10 @@ class MCJob:
 
     def run_phased(self, generator=None, x0=None):
         """Warmup (init + burnin steps with adaptation, then the tuner's
-        finalize) and sampling (no adaptation code) timed apart.  Returns
+        finalize) and sampling (no adaptation code) timed apart.  HMC's
+        warmup transitions replay captured units (``graphs.warm``, the hooks
+        eager between steps), and its and static NUTS's sampling captured
+        blocks (``graphs.sample``), bit for bit the eager loop.  Returns
         ``(chain, {'warmup_seconds', 'sampling_seconds'})``; on a CUDA device
         each phase ends in a synchronise.  Output to 'nstate' or 'none' only:
         ``run`` streams csv.  The timings are the clock reads of the job
@@ -692,7 +695,10 @@ class MCJob:
                 burnin = self.mcrange.burnin
                 phases.enter("warmup", burnin)
                 if burnin > 0:
-                    states = self._loop(states, stream, 0, burnin, True)
+                    if graphs.sampling_kind(self) == "leaps":
+                        states = graphs.warm(self, states, stream, 0, burnin)
+                    else:
+                        states = self._loop(states, stream, 0, burnin, True)
                     if hasattr(states, "tune") and not self.sampler.self_tuning:
                         states = states._replace(tune=self.tuner.finalize(states.tune))
                 _sync(device)

@@ -17,7 +17,12 @@ tests hold to the per-step loop:
 * (d) the blocked rats ``GibbsJob`` lands on the JAX package's posterior
   means within 4 combined Monte Carlo standard errors;
 * (e) a capture's wrapper counts are taken back and every replay adds them,
-  so the launch counters equal the eager loop's; a failed capture raises.
+  so the launch counters equal the eager loop's; a failed capture raises;
+* (f) HMC's warmup, its transitions replayed as units and the adaptation
+  hooks eager between steps, is bit for bit the eager warmup (pooled
+  tuning, ChEES and mass on; per-chain ε: the masked form), and the hooks
+  get fresh tensors: what an override keeps of what it is handed and
+  returns is the eager run's after the run, and shares storage as there.
 """
 
 import numpy as np
@@ -32,7 +37,9 @@ import klara_tpu_torch as kt
 from klara_tpu_torch.jobs import graphs
 from klara_tpu_torch.models import examples as tex
 from klara_tpu_torch.ops import keyed, logreg
+from klara_tpu_torch.utils import tracing
 
+WARMUP_KINDS = ("warmup head", "warmup leap", "warmup masked leap", "warmup tail")
 RATS = ("alpha_c", "beta_c", "sigma2_c", "sigma2_a", "sigma2_b")
 C, D, N = 32, 5, 50
 BURNIN, POST, THIN = 10, 31, 2   # 31 sampling steps: blocks of 4 leave a tail of 3
@@ -155,8 +162,10 @@ def test_blocked_sampling_is_the_per_step_loop(name, small_blocks, monkeypatch):
             elif key in ("leap", "masked leap"):
                 steps[-1][key == "masked leap"] += 1
         assert small_blocks.count("tail") == len(steps) == POST
-        # at most six graphs however many leap counts the run meets
-        assert set(small_blocks) <= set(prepass) | {"head", "leap", "masked leap", "tail"}
+        # at most six graphs however many leap counts the run meets; the
+        # warmup's transitions have units of their own
+        assert set(small_blocks) <= set(prepass) | {"head", "leap", "masked leap", "tail"} \
+            | set(WARMUP_KINDS)
         counts = blocked.diagnostics["nleaps"]
         assert counts.amax(1).tolist() == [sum(s) for s in steps[::THIN]]
         assert len({sum(s) for s in steps}) > 1  # the jitter moves the leap count
@@ -267,6 +276,11 @@ def test_a_block_reads_nothing_back(name, no_host_reads):
     blocks, inside = no_host_reads
     out = _rats(sweeps=12) if name == "rats" else _mcjob(name)
     assert blocks
+    if name.startswith("hmc"):  # the warmup's units are guarded too
+        assert {"warmup head", "warmup leap", "warmup tail"} <= set(blocks)
+        # one host read a warmup step, the leap counts', as in the eager loop
+        warmup = tracing.reports()[-1]["phases"]["warmup"]
+        assert warmup["counters"]["host_read.leapfrog_bounds"][0] == warmup["steps"] == BURNIN
     inside.append(True)  # the guard itself: a read inside a block raises
     with pytest.raises(AssertionError, match="inside a captured block"):
         bool(torch.ones(()))
@@ -368,3 +382,94 @@ def test_a_failed_capture_raises_and_runs_nothing_eagerly(monkeypatch, counters)
         units.run("block", body)
     assert (logreg.KERNEL_LAUNCHES, keyed.KERNEL_LAUNCHES, len(ran)) == (1, 2, 2)
     assert (graphs.GRAPHS_CAPTURED, graphs.GRAPH_REPLAYS) == (0, 0)
+
+
+# ------------------------------------------------------------------ (f)
+WARM, WARM_POST = 16, 9  # ChEES from step 1, mass at steps 4, 9 and 14
+
+
+def _stage2_hmc():
+    return kt.HMC(leapstep=0.05, nleaps=8, trajectory_length=1.0, jitter=0.9,
+                  jitter_style="step", max_nleaps=16)
+
+
+def _adapting_job(name, cls=kt.MCJob):
+    sampler, pooled, _ = SAMPLERS[name]
+    target, _, _ = tex.synthetic_logistic_regression(dim=D, n_data=N, device="cpu")
+    return cls(target, sampler(), kt.MCRange(n_steps=WARM + WARM_POST, burnin=WARM),
+               tuner=kt.DualAveragingTuner(0.8, WARM), n_chains=C, monitor=("value",),
+               diagnostics=("accept", "nleaps"), pooled_tuning=pooled, mass_adaptation=True,
+               mass_period=5, traj_adaptation=True, device="cpu")
+
+
+def _start(seed):
+    gen = torch.Generator().manual_seed(seed)
+    return gen, 0.1 * torch.randn(C, D, generator=gen)
+
+
+WARMUPS = ["hmc_shared_jitter_pooled", "hmc_shared_jitter_per_chain_step"]
+
+
+@pytest.mark.parametrize("name", WARMUPS)
+def test_graph_warmup_is_the_eager_warmup(name, small_blocks, monkeypatch):
+    def run():
+        chain, _, info = _adapting_job(name).run_preconditioned(
+            *_start(7), back_transform=False,
+            stage2_replace=dict(sampler=_stage2_hmc(), traj_adaptation=False))
+        return chain, info
+
+    graph, ginfo = run()
+    # both stages' warmups replay their transitions; per-chain ε masks leaps
+    assert small_blocks.count("warmup head") == small_blocks.count("warmup tail") == 2 * WARM
+    assert ("warmup masked leap" in small_blocks) == ("per_chain" in name)
+    _eager(monkeypatch)
+    eager, einfo = run()
+    for group in ("samples", "diagnostics"):
+        a, b = getattr(graph, group), getattr(eager, group)
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(_bits(a[k]), _bits(b[k])), (group, k)
+    assert _same(graph.final_state, eager.final_state)
+    assert _same(ginfo["stage1_state"], einfo["stage1_state"])
+    assert torch.equal(_bits(ginfo["chol"]), _bits(einfo["chol"]))
+
+
+class _Keeping(kt.MCJob):
+    """An ``MCJob`` whose hooks keep references, not copies, to everything
+    they are handed and return, as the benchmark's recording job does."""
+
+    kept = None
+
+    def adapt(self, prev_pos, states, infos, i, frac_shared=1.0):
+        new = super().adapt(prev_pos, states, infos, i, frac_shared)
+        _Keeping.kept.append((prev_pos, states, infos, frac_shared, new))
+        return new
+
+
+def _storage_groups(steps):
+    """The kept tensors that share storage, as sets of (step, leaf)."""
+    by = {}
+    for s, entry in enumerate(steps):
+        for k, t in enumerate(graphs._tensors(entry, [])):
+            by.setdefault(t.untyped_storage().data_ptr(), set()).add((s, k))
+    return sorted(sorted(g) for g in by.values())
+
+
+@pytest.mark.parametrize("name", WARMUPS)
+def test_the_hooks_get_fresh_tensors_and_what_they_keep_stays(name, monkeypatch):
+    def run():
+        _Keeping.kept = []
+        _adapting_job(name, _Keeping).run_phased(*_start(11))
+        return _Keeping.kept
+
+    graph = run()
+    _eager(monkeypatch)
+    eager = run()
+    assert len(graph) == len(eager) == WARM
+    for s, (a, b) in enumerate(zip(graph, eager)):
+        assert _same(a, b), s  # each step's, read after the whole run
+    assert _storage_groups(graph) == _storage_groups(eager)
+    # no two steps' infos share storage: nothing handed out is written again
+    infos = [{t.untyped_storage().data_ptr() for t in graphs._tensors(e[2], [])}
+             for e in graph]
+    assert all(not (infos[i] & infos[j]) for i in range(WARM) for j in range(i))
