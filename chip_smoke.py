@@ -6,10 +6,11 @@
     python3 chip_smoke.py --zoo-only     # phases 1-4 and 12-20 (the sampler zoo)
     python3 chip_smoke.py --io-only      # phases 1-4 and 21-23 (the output layer)
     python3 chip_smoke.py --examples-only  # phases 1-3 and 24 (seven examples)
-    python3 chip_smoke.py --graphs-only  # phases 1-6, 9, 10 and 28 (the captured loops)
+    python3 chip_smoke.py --graphs-only  # phases 1-6, 9, 10, 28 and 30 (the captured loops)
     python3 chip_smoke.py --profile DIR  # also profile stage 2 of both logreg rows and the Gibbs sweep
     python3 chip_smoke.py --stage1-sensitivity  # only: stage 1 with K1 and with the plain version, three seeds
     python3 chip_smoke.py --tracing-only  # phases 1-3 and 29 (the tracer's cost)
+    python3 chip_smoke.py --lgcp-only    # phases 1-3 and 30 (the LGCP, D = 4096; K1's wide form)
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
@@ -222,6 +223,19 @@ Phases, each of which raises on failure (the script then exits non-zero):
    times under ``torch.profiler`` (CUDA activity, as the benchmark's traced
    job), the tracer's spans off, on, on, off, two rounds: what the spans and
    their ``record_function`` cost a profiled job.
+30. (run after phase 28) the log-Gaussian Cox process on a 64 × 64 grid
+   (``models.lgcp``, D = 4096, 1024 chains): ``MCJob.run_phased`` with the
+   benchmark cell's ChEES settings, 60 warmup and 60 sampling steps, run
+   twice from one start and run key, once with warmup and sampling in
+   graph units and once in the eager loop; raises unless both give the same
+   final state, trace and diagnostics bit for bit and the same evaluation
+   (``core.target.FACTOR_EVALUATIONS``, replay-aware) and K2 counts, and unless
+   the graph run replayed units; prints both walls and the graph run's
+   evaluations.  Then logistic regressions wider than K1's 128-column tile
+   (D = 129 and 200, N = 1000, 250 chains: ragged chains, rows, chunks and
+   column tiles) build on the card, launch K1's wide form once an
+   evaluation, and meet float64's value+grad within ``WIDE_LOGREG_TOL``
+   (``passes=1``, TF32 operands, within ``WIDE_TF32_TOL``).
 
 The Gibbs paths launch no K1 (their sweep is plain torch ops in both
 packages); the kernels line records their K1 count, 0.  K2 makes every draw
@@ -326,6 +340,13 @@ GIBBS_PROFILE_SWEEPS = 50  # phase 9's profiled window (kernels per sweep)
 # phase 28: the windows each path runs twice (captured blocks, eager loop), and
 # the profiled windows beside them (the first block of each is eager)
 GRAPH_WINDOW_STEPS, GRAPH_WINDOW_SWEEPS = 200, 500
+# phase 30: the LGCP's grid, chains and steps; the wide logregs' tolerances
+# (relative to the largest |value| and |gradient| entry: f32 sums over
+# N = 1000 rows and D columns against float64; with TF32 operands three
+# decimal digits)
+LGCP_GRID, LGCP_CHAINS, LGCP_BURNIN, LGCP_POST = 64, 1024, 60, 60
+WIDE_LOGREG_TOL, WIDE_TF32_TOL = 1e-5, 1e-2
+WIDE_TIMED = (16384, 256, 1024)  # K1's wide form timed at (C, D, N)
 GRAPH_PROFILE_STEPS, GRAPH_PROFILE_SWEEPS = 60, 300
 GRAPH_WARMUP_STEPS, GRAPH_WARMUP_PROFILE_STEPS = 60, 20  # stage 1's warmup, both forms
 # published BUGS posterior means of the rats example, with the gate's width
@@ -1622,6 +1643,122 @@ def run_graphs_vs_eager(chees_end, nuts_end, gibbs_parts, device="cuda",
                  / max(e.get("profiler_kernels_per_step", 0.0), 1e-9))
     res["seconds"] = time.perf_counter() - t_phase
     print(f"# phase 28 (graphs against eager): {json.dumps(res)}", flush=True)
+    return res
+
+
+# ---------------------------------------------- phase 30: the LGCP, D = 4096
+def run_lgcp_graphs_vs_eager(device="cuda", grid=LGCP_GRID, chains=LGCP_CHAINS,
+                             burnin=LGCP_BURNIN, post=LGCP_POST):
+    """Phase 30: the LGCP job twice (graph units, eager loop) from one start
+    and run key; bit for bit, with equal evaluation and K2 counts.  Then
+    K1's wide form at D = 129 and 200 against float64."""
+    import klara_tpu_torch as kt
+    from klara_tpu_torch.core import target as core_target
+    from klara_tpu_torch.jobs import graphs
+    from klara_tpu_torch.models import lgcp
+    from klara_tpu_torch.models.examples import synthetic_logistic_regression
+    from klara_tpu_torch.ops import keyed, logreg
+
+    t0 = time.perf_counter()
+    target, counts, _ = lgcp.lgcp_grid(grid, device=device)
+    _sync(device)
+    res = {"grid": grid, "dim": grid * grid, "chains": chains, "counts": int(counts.sum()),
+           "target_s": time.perf_counter() - t0}
+
+    def run():
+        sampler = kt.HMC(leapstep=0.05, nleaps=8, trajectory_length=0.5, jitter=0.9,
+                         jitter_style="step", max_nleaps=128)
+        job = kt.MCJob(target, sampler, kt.MCRange(n_steps=burnin + post, burnin=burnin),
+                       tuner=kt.DualAveragingTuner(0.8, burnin, gamma=0.05, t0=10, kappa=0.75),
+                       n_chains=chains, monitor=("value",), diagnostics=("accept", "nleaps"),
+                       pooled_tuning=True, mass_adaptation=True, mass_period=50,
+                       traj_adaptation=True, traj_lr=0.1, traj_start_frac=0.1, device=device)
+        gen = torch.Generator(device=device).manual_seed(30)
+        z0 = torch.randn(chains, grid * grid, generator=gen, device=device)
+        _k2_reset()
+        evals, k1 = core_target.FACTOR_EVALUATIONS, logreg.KERNEL_LAUNCHES
+        _sync(device)
+        start = time.perf_counter()
+        chain, timings = job.run_phased(gen, z0)
+        _sync(device)
+        out = {"wall_s": time.perf_counter() - start, **timings,
+               "evals": core_target.FACTOR_EVALUATIONS - evals, "k2": keyed.KERNEL_LAUNCHES,
+               "k2_by_mode": {m: n for m, n in keyed.LAUNCHES_BY_MODE.items() if n},
+               "k1": logreg.KERNEL_LAUNCHES - k1, **_graph_counts()}
+        named = (_flat("final", chain.final_state) + _flat("trace", chain.samples)
+                 + _flat("diag", chain.diagnostics))
+        return named, out
+
+    g_out, g = run()
+    kind = graphs.sampling_kind
+    graphs.sampling_kind = lambda job: None
+    try:
+        e_out, e = run()
+    finally:
+        graphs.sampling_kind = kind
+    if g["graph_replays"] <= 0 or e["graph_replays"] != 0:
+        raise RuntimeError(f"phase 30: graph replays {g['graph_replays']} (graph form), "
+                           f"{e['graph_replays']} (eager form)")
+    if g["k1"] or e["k1"]:
+        raise RuntimeError("phase 30: the LGCP job launched K1")
+    for key in ("evals", "k2", "k2_by_mode"):
+        if g[key] != e[key]:
+            raise RuntimeError(f"phase 30: {key} {g[key]} (graph) against {e[key]} (eager)")
+    if [n for n, _ in g_out] != [n for n, _ in e_out]:
+        raise RuntimeError("phase 30: the two forms give different tensors")
+    for (name, a), (_, b) in zip(g_out, e_out):
+        if not _bits_equal(a, b):
+            raise RuntimeError(f"phase 30: {name} differs between the graph and eager runs")
+    res.update(graph=g, eager=e,
+               graph_us_per_eval=1e6 * g["wall_s"] / max(1, g["evals"]))
+    del g_out, e_out
+
+    for dim in (129, 200):
+        wide, X, y = synthetic_logistic_regression(dim=dim, n_data=1000, device=device)
+        P = 0.05 * torch.randn(250, dim, generator=torch.Generator(device=device).manual_seed(2),
+                               device=device)
+        Xd, yd, Pd = X.double(), y.double(), P.double()
+        logits = Pd @ Xd.T
+        rv = (logits @ yd - torch.nn.functional.softplus(logits).sum(-1)
+              - 0.5 * ((Pd * Pd).sum(-1) / 100.0 + dim * math.log(2.0 * math.pi * 100.0)))
+        rg = (yd - torch.sigmoid(logits)) @ Xd - Pd / 100.0
+        k1 = logreg.KERNEL_LAUNCHES
+        v, grad = wide.logdensity_and_grad(P)
+        launched = logreg.KERNEL_LAUNCHES - k1
+        prepared = logreg.prepare_x(X, y)
+        v1, g1 = logreg.logreg_value_grad(P, X, (X.T @ y).contiguous(), 100.0, passes=1,
+                                          prepared=prepared)
+        _sync(device)
+
+        def rel(a, b):
+            return float((a.double() - b).abs().max() / b.abs().max())
+
+        errs = (rel(v, rv), rel(grad, rg))
+        tf32 = (rel(v1, rv), rel(g1, rg))
+        res[f"wide_logreg_d{dim}"] = {"rel_err": errs, "tf32_rel_err": tf32,
+                                      "k1_launches": launched}
+        if launched != 1:
+            raise RuntimeError(f"phase 30: the D = {dim} logreg launched K1 {launched} times")
+        if max(errs) > WIDE_LOGREG_TOL or max(tf32) > WIDE_TF32_TOL:
+            raise RuntimeError(f"phase 30: K1's wide form at D = {dim} is off float64 by "
+                               f"{errs} (f32), {tf32} (TF32)")
+    # its time at C = 16384, D = 256, N = 1024 beside the least the FP32
+    # cores need for the two products' useful work (4·C·N·D operations at
+    # 67 TFLOP/s) and beside the plain version's
+    C, dim, n = WIDE_TIMED
+    _, X, y = synthetic_logistic_regression(dim=dim, n_data=n, device=device)
+    P = 0.05 * torch.randn(C, dim, generator=torch.Generator(device=device).manual_seed(3),
+                           device=device)
+    prepared, v = logreg.prepare_x(X, y), (X.T @ y).contiguous()
+    res["wide_timed"] = {
+        "shape": WIDE_TIMED,
+        "k1_ms": _time_ms(lambda: logreg.logreg_value_grad(P, X, v, 100.0, prepared=prepared),
+                          iters=20),
+        "plain_ms": _time_ms(lambda: logreg.logreg_value_grad_reference(P, X, v, 100.0),
+                             iters=20),
+        "fp32_bound_ms": 1e3 * 4.0 * C * n * dim / 67e12,
+    }
+    print(f"# phase 30 (the LGCP, graphs against eager): {json.dumps(res)}", flush=True)
     return res
 
 
@@ -3754,6 +3891,10 @@ def main():
         run_examples()
         print(card)
         return
+    if "--lgcp-only" in sys.argv:
+        run_lgcp_graphs_vs_eager()
+        print(card)
+        return
     profile_dir = sys.argv[sys.argv.index("--profile") + 1] if "--profile" in sys.argv else None
     chees, chees_summary, chees_end, x_end, chees_fingerprint = run_main_path()
     if "--parallel-only" in sys.argv:
@@ -3792,6 +3933,7 @@ def main():
           f"{gprof['k2_host_us_per_sweep']} us of host time in its K2 draws", flush=True)
     graphs28 = run_graphs_vs_eager(chees_end, (wjob, state, gen), (gjob, gchains, gv0, ggen))
     del chees_end, wjob, state
+    run_lgcp_graphs_vs_eager()
     if "--graphs-only" in sys.argv:
         print(card)
         return

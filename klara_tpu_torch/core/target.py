@@ -25,7 +25,15 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from klara_tpu_torch.utils import tracing
+
 LogDensityFn = Callable[..., torch.Tensor]
+
+# Value+grad evaluations through a factor (``through_factor``: the LGCP's
+# and a whitened target's) in this process, replays included: a plain
+# counter (reset it by assignment), replay-aware through
+# ``jobs.graphs.launches_of`` and ``add_launches``.
+FACTOR_EVALUATIONS = 0
 
 
 def chain_sum(lp):
@@ -246,24 +254,52 @@ def bounded_target(target: Target, lower=None, upper=None) -> Target:
     return dataclasses.replace(target, logdensity_fn=logdensity_fn)
 
 
+def through_factor(value_and_grad, chol, shift=None, standard_normal: bool = False):
+    """The fused value+grad in y of a function f of x = shift + L y (L =
+    ``chol``, lower-triangular), from f's fused ``value_and_grad`` in x.
+
+    Row-wise for a (C, D) batch: x = y Lᵀ (+ ``shift``, a (D,) tensor, in
+    the product's epilogue) and grad_y = grad_x L, two (C, D)×(D, D)
+    products an evaluation around f's.  With ``standard_normal`` a N(0, I)
+    log-density in y is added: −½‖y‖² to the value and −y to the gradient,
+    the latter in the second product's epilogue.  Returns (value_and_grad
+    in y, the map y -> x).
+
+    Each evaluation adds one to ``FACTOR_EVALUATIONS`` and its host time
+    to the tracer's timed counter ``factor.host_ns``, a span ``factor``
+    while recording (a graph replay runs neither)."""
+    chol = torch.as_tensor(chol)
+    chol_t = chol.T.contiguous()
+
+    def to_x(y):
+        return y @ chol_t if shift is None else torch.addmm(shift, y, chol_t)
+
+    def value_and_grad_fn(y):
+        global FACTOR_EVALUATIONS
+        with tracing.timed("factor.host_ns", "factor"):
+            v, g = value_and_grad(to_x(y))
+            if not standard_normal:
+                out = v, g @ chol
+            else:
+                out = v - 0.5 * (y * y).sum(-1), torch.addmm(y, g, chol, beta=-1.0)
+        FACTOR_EVALUATIONS += 1
+        return out
+
+    return value_and_grad_fn, to_x
+
+
 def whiten_target(target: Target, chol) -> Target:
     """Reparameterise ``target`` by x = L y (L = ``chol``, lower-triangular).
 
     Row-wise for a (C, D) batch: x = y Lᵀ and grad_y = grad_x L, two plain
     (C, D)×(D, D) matmuls per evaluation around the inner target's fused
-    value+grad (K1 for the logreg target)."""
+    value+grad (K1 for the logreg target): ``through_factor``."""
     chol = torch.as_tensor(chol)
     chol_t = chol.T.contiguous()
-
-    def to_x(y):
-        return y @ chol_t
+    value_and_grad_fn, to_x = through_factor(target.logdensity_and_grad, chol)
 
     def logdensity_fn(y):
         return target.logdensity(to_x(y))
-
-    def value_and_grad_fn(y):
-        v, g = target.logdensity_and_grad(to_x(y))
-        return v, g @ chol
 
     loglik = (
         (lambda y: target.loglikelihood_fn(to_x(y)))

@@ -91,10 +91,11 @@ Where trouble lies, and what is done about it:
   ``torch.cuda.set_sync_debug_mode("error")``, and a capture that fails
   raises; nothing falls back to the eager loop.
 * Launch counters.  ``ops.logreg.KERNEL_LAUNCHES``, ``ops.keyed.KERNEL_LAUNCHES``
-  and ``LAUNCHES_BY_MODE`` count Python calls.  A capture calls the wrappers
-  but runs nothing, so the counts a capture adds are recorded and taken back
-  (``launches_of``), and every replay adds them (``add_launches``): the
-  counts equal the eager loop's.
+  and ``LAUNCHES_BY_MODE`` count Python calls, as does
+  ``core.target.FACTOR_EVALUATIONS`` the evaluations through a factor (the
+  LGCP's launch neither kernel).  A capture calls the wrappers but runs nothing, so the counts a
+  capture adds are recorded and taken back (``launches_of``), and every
+  replay adds them (``add_launches``): the counts equal the eager loop's.
 * Memory.  A phase's graphs share one pool, which holds one block's
   intermediates; the staging buffers hold a block's saved rows, and HMC's
   trajectory between replays lives in tensors made by its first, eager
@@ -108,6 +109,7 @@ from typing import NamedTuple
 
 import torch
 
+from klara_tpu_torch.core import target as core_target
 from klara_tpu_torch.ops import keyed, logreg
 from klara_tpu_torch.samplers.hamiltonian import leap
 from klara_tpu_torch.samplers.hmc import HMC
@@ -126,11 +128,13 @@ REPLAYED_LAUNCHES = {"k1": 0, "k2": 0}
 
 # ---------------------------------------------------------- launch counters
 class Launches(NamedTuple):
-    """Kernel launches the wrappers counted: K1, K2 and K2 by mode."""
+    """What the wrappers counted: K1's and K2's launches, K2's by mode, and
+    the evaluations through a factor (``core.target.through_factor``)."""
 
     k1: int
     k2: int
     k2_by_mode: dict
+    evals: int = 0
 
 
 def launches_of(fn) -> Launches:
@@ -138,13 +142,16 @@ def launches_of(fn) -> Launches:
     the counters set back to where they were: what a capture records, since
     it calls the wrappers but launches nothing."""
     k1, k2, modes = logreg.KERNEL_LAUNCHES, keyed.KERNEL_LAUNCHES, dict(keyed.LAUNCHES_BY_MODE)
+    evals = core_target.FACTOR_EVALUATIONS
     try:
         fn()
     finally:
         now = keyed.LAUNCHES_BY_MODE
         rec = Launches(logreg.KERNEL_LAUNCHES - k1, keyed.KERNEL_LAUNCHES - k2,
-                       {m: n - modes.get(m, 0) for m, n in now.items() if n != modes.get(m, 0)})
+                       {m: n - modes.get(m, 0) for m, n in now.items() if n != modes.get(m, 0)},
+                       core_target.FACTOR_EVALUATIONS - evals)
         logreg.KERNEL_LAUNCHES, keyed.KERNEL_LAUNCHES = k1, k2
+        core_target.FACTOR_EVALUATIONS = evals
         now.update(modes)
     return rec
 
@@ -153,6 +160,7 @@ def add_launches(rec: Launches) -> None:
     """One replay's launches, added to the wrappers' counters."""
     logreg.KERNEL_LAUNCHES += rec.k1
     keyed.KERNEL_LAUNCHES += rec.k2
+    core_target.FACTOR_EVALUATIONS += rec.evals
     for mode, n in rec.k2_by_mode.items():
         keyed.LAUNCHES_BY_MODE[mode] += n
     REPLAYED_LAUNCHES["k1"] += rec.k1

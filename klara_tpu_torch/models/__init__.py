@@ -17,6 +17,7 @@ from klara_tpu_torch.models.graph import (
     Variable,
     likelihood_model,
 )
+from klara_tpu_torch.models.lgcp import lgcp_grid, lgcp_target
 
 __all__ = [
     "Constant",
@@ -27,6 +28,8 @@ __all__ = [
     "Parameter",
     "Transformation",
     "Variable",
+    "lgcp_grid",
+    "lgcp_target",
     "likelihood_model",
     "logistic_regression_target",
     "normal_target",

@@ -37,10 +37,11 @@ def logistic_regression_target(
     """Bayesian logistic regression with a N(0, prior_var·I) prior, in f32:
     loglik(p) = (Xp)ᵀy − Σ softplus(Xp), logprior(p) = −½(pᵀp/λ + d·log 2πλ).
 
-    Value and gradient come from one K1 launch per batch of chains;
-    ``analytical_grad`` gives ``grad`` its closed form (else autograd).
-    The target lives on ``device`` (None: the device of X and y if they are
-    tensors, else the card)."""
+    Value and gradient come from one K1 launch per batch of chains (wider
+    than K1's 128-column tile, its wide form); ``analytical_grad`` gives
+    ``grad`` its closed form (else autograd).  The target lives on
+    ``device`` (None: the device of X and y if they are tensors, else the
+    card)."""
     device = resolve_device(device, (X, y))
     X = torch.as_tensor(X, dtype=torch.float32, device=device).contiguous()
     y = torch.as_tensor(y, dtype=torch.float32, device=X.device)

@@ -30,7 +30,8 @@ EXTRA_FLAGS = {"keyed_draws": ("-fmad=false",)}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # each library's entry points and their C signatures
 ENTRY = {
-    "logreg": {"klara_logreg_value_grad_tf32": [_P] * 6 + [_I] * 5 + [ctypes.c_float] * 2 + [_P]},
+    "logreg": {"klara_logreg_value_grad_tf32": [_P] * 6 + [_I] * 5 + [ctypes.c_float] * 2 + [_P],
+               "klara_logreg_value_grad_wide": [_P] * 6 + [_I] * 4 + [ctypes.c_float] * 2 + [_P]},
     # the launch arguments packed in one struct (keyed.py: _ARGS), the stream
     "keyed_draws": {"klara_keyed_draws": [ctypes.c_char_p, _P],
                     "klara_keyed_draws_info": [_I, _I, _P]},

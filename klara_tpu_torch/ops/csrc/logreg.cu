@@ -80,7 +80,8 @@
 //     columns >= D are zeros in P and in the images, data rows >= N are zeros
 //     in the images and masked after the elementwise map (they add nothing to
 //     either sum, so no n_pad*log(2) correction is needed).  1 <= D <= 128;
-//     DP is 104 up to D = 104 and 128 above.
+//     DP is 104 up to D = 104 and 128 above.  Wider D takes the wide form
+//     (below), which tiles D into 128-column tiles of the gradient.
 //
 // C interface for ctypes: returns the cudaError_t of the launch; the launch
 // goes on the caller's stream and does not synchronise.
@@ -595,6 +596,161 @@ logreg_value_grad_kernel(const float* __restrict__ P, const float* __restrict__ 
   }
 }
 
+// ------------------------------------------------------- the wide form
+// For D > kMaxD the block's P rows and its gradient accumulator no longer fit
+// beside the rings, so the wide form tiles D instead: block (x, y) owns chains
+// 64 x .. 64 x + 63 and gradient columns 128 y .. 128 y + 127 (one 128-column
+// tile of D), and for each tile of 32 data rows it
+//   * computes the full logits Z = P X^T (64 x 32) over D in chunks of 32
+//     columns, both operands staged in shared memory a chunk at a time;
+//   * maps them (the same row-by-row softplus(z) - y z as above, and sigmoid),
+//     masking data rows >= N;
+//   * adds sigmoid(Z) X[:, tile] (64 x 128) into its accumulator.
+// The logits are recomputed by each of the ceil(D / 128) column tiles (a
+// wider accumulator would not fit in registers), so the form does
+// (D / 128 + 1) / 2 times the operations of the two products; only the
+// blocks of column tile 0 write the values.  Both products run on the FP32
+// cores (FMA, f32 accumulators): at kTf32 every operand is rounded to TF32
+// first, the counterpart of passes = 1.  256 threads: thread (ty, tx) =
+// (tid / 8, tid % 8) holds chains ty and ty + 32, logits of data rows
+// tx + 8 i (i < 4) and gradient columns 32 g + 4 tx + e (g, e < 4).  The
+// products read shared memory 16 bytes a thread (rows padded to 36 floats,
+// so that the 8 rows a warp reads at once start in 8 different banks): a
+// quarter of the load instructions of scalar reads.  What bounds it:
+// the FP32 cores, 67 TFLOP/s; at C = 16384, D = 256, N = 1024 its 26 GFLOP
+// (the logits twice) need 0.4 ms.  It serves the widths the tensor-core form
+// cannot hold; no benchmarked path is that wide.
+constexpr int kWideChains = 64, kWideRows = 32, kWideK = 32, kWideCols = 128;
+
+template <bool kTf32>
+__device__ __forceinline__ float wide_operand(float x) {
+  return kTf32 ? __uint_as_float(tf32_rna(x)) : x;
+}
+
+template <bool kTf32>
+__global__ void __launch_bounds__(kThreads)
+logreg_value_grad_wide_kernel(const float* __restrict__ P, const float* __restrict__ X,
+                              const float* __restrict__ Y, const float* __restrict__ v,
+                              float* __restrict__ value, float* __restrict__ grad, int C, int N,
+                              int D, float inv_lam, float log_norm) {
+  constexpr int kPad = 4;  // keeps rows 16-byte aligned
+  __shared__ __align__(16) float Ps[kWideChains][kWideK + kPad];   // P, a chunk of 32 columns
+  __shared__ __align__(16) float Xs[kWideRows][kWideK + kPad];     // X, the tile's rows, the same chunk
+  __shared__ __align__(16) float Ss[kWideChains][kWideRows + kPad];  // sigmoid(Z) of the tile
+  __shared__ __align__(16) float Xj[kWideRows][kWideCols];  // X, the tile's rows, this block's columns
+
+  const int tid = threadIdx.x, tx = tid & 7, ty = tid >> 3;
+  const int c0 = blockIdx.x * kWideChains, j0 = blockIdx.y * kWideCols;
+  float G[2][kWideCols / 8];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int m = 0; m < kWideCols / 8; ++m) G[a][m] = 0.0f;
+  float sp[2] = {0.0f, 0.0f};  // sums of softplus(z) - y z over this thread's rows
+
+  for (int n0 = 0; n0 < N; n0 += kWideRows) {
+    float z[2][4];
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) z[a][i] = 0.0f;
+    for (int k0 = 0; k0 < D; k0 += kWideK) {
+      // neighbouring threads read neighbouring columns of one row
+      for (int idx = tid; idx < kWideChains * kWideK; idx += kThreads) {
+        const int r = idx / kWideK, k = idx % kWideK, c = c0 + r, d = k0 + k;
+        Ps[r][k] = (c < C && d < D) ? wide_operand<kTf32>(P[(size_t)c * D + d]) : 0.0f;
+      }
+      for (int idx = tid; idx < kWideRows * kWideK; idx += kThreads) {
+        const int r = idx / kWideK, k = idx % kWideK, n = n0 + r, d = k0 + k;
+        Xs[r][k] = (n < N && d < D) ? wide_operand<kTf32>(X[(size_t)n * D + d]) : 0.0f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int k = 0; k < kWideK; k += 4) {
+        const float4 p0 = *reinterpret_cast<const float4*>(&Ps[ty][k]);
+        const float4 p1 = *reinterpret_cast<const float4*>(&Ps[ty + 32][k]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 x = *reinterpret_cast<const float4*>(&Xs[tx + 8 * i][k]);
+          z[0][i] = fmaf(p0.w, x.w, fmaf(p0.z, x.z, fmaf(p0.y, x.y, fmaf(p0.x, x.x, z[0][i]))));
+          z[1][i] = fmaf(p1.w, x.w, fmaf(p1.z, x.z, fmaf(p1.y, x.y, fmaf(p1.x, x.x, z[1][i]))));
+        }
+      }
+      __syncthreads();  // the chunk is read before the next overwrites it
+    }
+#pragma unroll
+    for (int a = 0; a < 2; ++a)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int n = n0 + tx + 8 * i;
+        float s = 0.0f;
+        if (n < N) {
+          const float e = expf(-fabsf(z[a][i]));
+          const float r = 1.0f / (1.0f + e);
+          s = z[a][i] >= 0.0f ? r : e * r;
+          // max(z, 0) - y z is exact for a label of 0 or 1 (see above)
+          sp[a] += fmaf(-Y[n], z[a][i], fmaxf(z[a][i], 0.0f)) + log1pf(e);
+        }
+        Ss[ty + 32 * a][tx + 8 * i] = wide_operand<kTf32>(s);
+      }
+    for (int idx = tid; idx < kWideRows * kWideCols; idx += kThreads) {
+      const int r = idx / kWideCols, j = idx % kWideCols, n = n0 + r, d = j0 + j;
+      Xj[r][j] = (n < N && d < D) ? wide_operand<kTf32>(X[(size_t)n * D + d]) : 0.0f;
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int n = 0; n < kWideRows; n += 4) {
+      const float4 s0 = *reinterpret_cast<const float4*>(&Ss[ty][n]);
+      const float4 s1 = *reinterpret_cast<const float4*>(&Ss[ty + 32][n]);
+      const float a0[4] = {s0.x, s0.y, s0.z, s0.w}, a1[4] = {s1.x, s1.y, s1.z, s1.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const float4 x = *reinterpret_cast<const float4*>(&Xj[n + r][32 * g + 4 * tx]);
+          G[0][4 * g] = fmaf(a0[r], x.x, G[0][4 * g]);
+          G[0][4 * g + 1] = fmaf(a0[r], x.y, G[0][4 * g + 1]);
+          G[0][4 * g + 2] = fmaf(a0[r], x.z, G[0][4 * g + 2]);
+          G[0][4 * g + 3] = fmaf(a0[r], x.w, G[0][4 * g + 3]);
+          G[1][4 * g] = fmaf(a1[r], x.x, G[1][4 * g]);
+          G[1][4 * g + 1] = fmaf(a1[r], x.y, G[1][4 * g + 1]);
+          G[1][4 * g + 2] = fmaf(a1[r], x.z, G[1][4 * g + 2]);
+          G[1][4 * g + 3] = fmaf(a1[r], x.w, G[1][4 * g + 3]);
+        }
+    }
+    __syncthreads();  // Ss and Xj are read before the next tile overwrites them
+  }
+
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int c = c0 + ty + 32 * a;
+    if (c < C) {
+#pragma unroll
+      for (int m = 0; m < kWideCols / 8; ++m) {
+        const int d = j0 + 32 * (m >> 2) + 4 * tx + (m & 3);
+        if (d < D) grad[(size_t)c * D + d] = v[d] - G[a][m] - P[(size_t)c * D + d] * inv_lam;
+      }
+    }
+  }
+  if (blockIdx.y != 0) return;
+  // the values: the 8 threads of a chain (consecutive lanes) sum their rows'
+  // terms and the chain's |p|^2
+#pragma unroll
+  for (int a = 0; a < 2; ++a) {
+    const int c = c0 + ty + 32 * a;
+    float pp = 0.0f;
+    if (c < C)
+      for (int d = tx; d < D; d += 8) pp = fmaf(P[(size_t)c * D + d], P[(size_t)c * D + d], pp);
+    float s = sp[a];
+#pragma unroll
+    for (int off = 1; off <= 4; off <<= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+      pp += __shfl_xor_sync(0xffffffffu, pp, off);
+    }
+    if (tx == 0 && c < C) value[c] = -s - 0.5f * pp * inv_lam - log_norm;
+  }
+}
+
 // ---------------------------------------------------------------------- host
 // Slots (of kDP x 32 x 2 TF32 each) that one warpgroup's two rings may hold
 // beside the block's P rows: 3 at kDP = 104, 2 at 128.
@@ -648,4 +804,23 @@ extern "C" int klara_logreg_value_grad_tf32(const float* P, const float* Ximg, c
   if (passes == 3) KLARA_LAUNCH(128, 3);
   KLARA_LAUNCH(128, 1);
 #undef KLARA_LAUNCH
+}
+
+// The wide form, any D: X is (N, D) row-major as the caller holds it, Y the
+// labels (at least N of them).  passes = 3: f32 products; 1: TF32 operands.
+extern "C" int klara_logreg_value_grad_wide(const float* P, const float* X, const float* Y,
+                                             const float* v, float* value, float* grad, int C,
+                                             int N, int D, int passes, float inv_lam,
+                                             float log_norm, void* stream) {
+  if (Y == nullptr || C <= 0 || N <= 0 || D <= 0 || (passes != 1 && passes != 3))
+    return (int)cudaErrorInvalidValue;
+  const dim3 blocks((C + kWideChains - 1) / kWideChains, (D + kWideCols - 1) / kWideCols);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (passes == 3)
+    logreg_value_grad_wide_kernel<false><<<blocks, kThreads, 0, st>>>(P, X, Y, v, value, grad, C,
+                                                                     N, D, inv_lam, log_norm);
+  else
+    logreg_value_grad_wide_kernel<true><<<blocks, kThreads, 0, st>>>(P, X, Y, v, value, grad, C,
+                                                                    N, D, inv_lam, log_norm);
+  return (int)cudaGetLastError();
 }

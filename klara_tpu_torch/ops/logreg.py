@@ -18,7 +18,11 @@ lo·hi + hi·lo + hi·hi, which is f32-grade; ``passes=1`` keeps hi·hi only
 ``mxu_dtype``.  X and y are constant per target, so what the kernel wants
 of them (``prepare_x``: D padded to a multiple of 8, the hi/lo split, a
 transposed copy, all in the byte order of the kernel's shared-memory tiles,
-and the padded labels) is made once and handed to every call.  The kernel
+and the padded labels) is made once and handed to every call.  Wider than
+``MAX_DIM`` columns the kernel takes its wide form, which tiles D into
+128-column tiles of the gradient (the Pallas kernel pads D to a multiple of
+128 likewise) and reads X as it is: two f32 products on the FP32 cores
+(``passes=1``: TF32 operands), the log-likelihood summed row by row too.  The kernel
 sums the log-likelihood row by row, Σ_n (y_n z_n − softplus(z_n)), from its
 own logits: the same number as p·v − Σ softplus from exact logits, but a sum
 of terms that are small where the model fits.  ``logreg_value_grad_split``
@@ -40,7 +44,7 @@ import torch
 
 from klara_tpu_torch.utils import tracing
 
-MAX_DIM = 128   # widest accumulator tile the kernel instantiates
+MAX_DIM = 128   # widest accumulator tile; wider D takes the kernel's wide form
 TILE_N = 32     # data rows per tile image
 # position k' of an 8-row block's K order holds data row _ROW_ORDER[k']: the
 # first product leaves rows (2q, 2q+1) with the thread that must supply
@@ -89,7 +93,10 @@ def tf32_truncate(a):
 
 
 def padded_dim(D: int) -> int:
-    """The kernel's accumulator width for D columns."""
+    """The kernel's accumulator width for D columns: 104 or 128, or above
+    ``MAX_DIM`` the wide form's 128-column tiles."""
+    if D > MAX_DIM:
+        return MAX_DIM * -(-D // MAX_DIM)
     return 104 if D <= 104 else 128
 
 
@@ -104,8 +111,9 @@ class PreparedX:
       n′ the position of row n in ``_ROW_ORDER`` within its block of 8
 
     hi = ``tf32_round``; lo = X − hi exactly (the tensor core drops at most
-    its last bit).  Rows ≥ N and columns ≥ D are zeros.  ``y`` holds the
-    labels, zero-padded to T·32."""
+    its last bit).  Rows ≥ N and columns ≥ D are zeros.  For the wide form
+    (D > ``MAX_DIM``, ``wide``) ``image`` is X itself, (N, D).  ``y`` holds
+    the labels, zero-padded to T·32."""
 
     image: torch.Tensor
     n_data: int
@@ -113,9 +121,15 @@ class PreparedX:
     dim_padded: int
     y: torch.Tensor
 
+    @property
+    def wide(self) -> bool:
+        return self.dim > MAX_DIM
+
     def unpack(self):
         """X rebuilt as hi + lo from the X sections and from the Xᵀ
         sections: two (N, D) tensors, both equal to X."""
+        if self.wide:
+            return self.image, self.image
         T, DP = self.image.shape[0], self.dim_padded
         sec = self.image.view(T, 4, DP * TILE_N)
         rows = sec[:, 0:2].reshape(T, 2, DP // 4, TILE_N // 8, 8, 4).sum(1)
@@ -134,6 +148,9 @@ def prepare_x(X, y) -> PreparedX:
     if y.shape != (N,):
         raise ValueError(f"K1: X is {tuple(X.shape)}, y {tuple(y.shape)}: expected ({N},)")
     DP, T = padded_dim(D), -(-N // TILE_N)
+    y = torch.cat([y.to(X), X.new_zeros(T * TILE_N - N)]).contiguous()
+    if D > MAX_DIM:
+        return PreparedX(image=X.contiguous(), n_data=N, dim=D, dim_padded=DP, y=y)
     Xp = X.new_zeros(T * TILE_N, DP)
     Xp[:N, :D] = X
     hi = tf32_round(Xp)
@@ -147,7 +164,6 @@ def prepare_x(X, y) -> PreparedX:
         return M.reshape(T, TILE_N // 4, 4, DP // 8, 8).permute(0, 1, 3, 4, 2).reshape(T, -1)
 
     image = torch.cat([rows(hi), rows(lo), cols(hi), cols(lo)], dim=1).contiguous()
-    y = torch.cat([y.to(X), X.new_zeros(T * TILE_N - N)]).contiguous()
     return PreparedX(image=image, n_data=N, dim=D, dim_padded=DP, y=y)
 
 
@@ -155,11 +171,14 @@ def logreg_value_grad_split(P, X, y, prior_var, passes=3):
     """K1's arithmetic in plain PyTorch, from the labels y (N,): both
     products on TF32-rounded operands (each product of two TF32 numbers is
     exact in f32), three passes or one, f32 sums; the log-likelihood summed
-    row by row from the split logits; the rest as the plain version."""
+    row by row from the split logits; the rest as the plain version.  Wider
+    than ``MAX_DIM`` (the wide form) three passes are f32 products."""
     lam = float(prior_var)
     D = P.shape[-1]
 
     def product(A, B, b_rounded):  # A rounded by the kernel, B as stored
+        if passes == 3 and D > MAX_DIM:
+            return A @ B
         a_hi = tf32_round(A)
         b_hi = tf32_round(B)
         if passes == 1:
@@ -191,8 +210,8 @@ def _check(P, X, v, passes=3, prepared=None):
     C, D = P.shape
     if X.shape[1] != D or v.shape[0] != D:
         raise ValueError(f"K1: dims disagree: P {tuple(P.shape)}, X {tuple(X.shape)}, v {tuple(v.shape)}")
-    if not 1 <= D <= MAX_DIM:
-        raise ValueError(f"K1 takes 1 <= D <= {MAX_DIM}, got D={D}")
+    if D < 1:
+        raise ValueError(f"K1 takes D >= 1, got D={D}")
     if C < 1 or X.shape[0] < 1:
         raise ValueError("K1: empty chains or data")
     for name, t in (("P", P), ("X", X), ("v", v)):
@@ -221,7 +240,8 @@ def logreg_value_grad(P, X, v, prior_var, passes=3, prepared=None):
     """Batched value (C,) and gradient (C, D).
 
     CUDA tensors launch K1 on the current stream (no synchronisation) or
-    raise; CPU tensors take ``logreg_value_grad_reference``.  ``prepared``
+    raise, wider than ``MAX_DIM`` its wide form; CPU tensors take
+    ``logreg_value_grad_reference``.  ``prepared``
     is ``prepare_x(X, y)``, made once per target by the caller: the kernel
     needs it, the plain version does not.  ``passes``: 3 or 1 TF32 passes
     per product.  The call's host time goes to the tracer's ``k1.host_ns``."""
@@ -241,13 +261,21 @@ def logreg_value_grad(P, X, v, prior_var, passes=3, prepared=None):
     lam = float(prior_var)
     value = torch.empty(C, device=P.device, dtype=torch.float32)
     grad = torch.empty(C, D, device=P.device, dtype=torch.float32)
+    stream = torch.cuda.current_stream(P.device).cuda_stream
+    log_norm = 0.5 * D * math.log(2.0 * math.pi * lam)
     with torch.cuda.device(P.device):  # the launch goes to the current device
-        rc = lib.klara_logreg_value_grad_tf32(
-            P.data_ptr(), prepared.image.data_ptr(), prepared.y.data_ptr(), v.data_ptr(),
-            value.data_ptr(), grad.data_ptr(), C, prepared.n_data, D, prepared.dim_padded, passes,
-            1.0 / lam, 0.5 * D * math.log(2.0 * math.pi * lam),
-            torch.cuda.current_stream(P.device).cuda_stream,
-        )
+        if prepared.wide:
+            rc = lib.klara_logreg_value_grad_wide(
+                P.data_ptr(), prepared.image.data_ptr(), prepared.y.data_ptr(), v.data_ptr(),
+                value.data_ptr(), grad.data_ptr(), C, prepared.n_data, D, passes, 1.0 / lam,
+                log_norm, stream,
+            )
+        else:
+            rc = lib.klara_logreg_value_grad_tf32(
+                P.data_ptr(), prepared.image.data_ptr(), prepared.y.data_ptr(), v.data_ptr(),
+                value.data_ptr(), grad.data_ptr(), C, prepared.n_data, D, prepared.dim_padded,
+                passes, 1.0 / lam, log_norm, stream,
+            )
     if rc != 0:
         raise RuntimeError(f"K1 launch failed: cudaError {rc}")
     KERNEL_LAUNCHES += 1

@@ -40,7 +40,9 @@ units), ``eager_block``, ``capture``, ``replay.<kind>``, ``adapt.*`` and
 ``adapt.chees``, ``block_bounds``, ``sync``, ``overflow``, ``checkin``),
 ``graphs.eager_blocks``, ``graphs.captures``, ``graphs.replays.<kind>``,
 ``k1.host_ns`` and ``k2.host_ns`` (host time inside the kernels'
-wrappers; on the CPU, their plain versions'); the count
+wrappers; on the CPU, their plain versions'), ``factor.host_ns`` (inside an
+evaluation through a factor, ``core.target.through_factor``, a span
+``factor`` while recording); the count
 ``graphs.eager_steps``.
 """
 
@@ -63,6 +65,7 @@ _profiling = torch.autograd._profiler_enabled
 
 # the repo's module counters, read (never moved) by ``counters()``
 _MODULE_COUNTERS = (
+    ("core.target", "FACTOR_EVALUATIONS"),
     ("ops.logreg", "KERNEL_LAUNCHES"),
     ("ops.keyed", "KERNEL_LAUNCHES"),
     ("ops.keyed", "LAUNCHES_BY_MODE"),

@@ -13,6 +13,7 @@ import klara_tpu_torch as kt
 from klara_tpu_torch import convert
 from klara_tpu_torch.core.device import resolve_device
 from klara_tpu_torch.models import examples as tex
+from klara_tpu_torch.models import lgcp
 
 RNG = np.random.default_rng(0)
 X = RNG.standard_normal((20, 3)).astype(np.float32)
@@ -66,6 +67,10 @@ ENTRY_POINTS = {
     "swiss_logistic_regression": lambda d: tex.swiss_logistic_regression(device=d)[1:],
     "synthetic_logistic_regression": lambda d: tex.synthetic_logistic_regression(
         dim=3, n_data=8, device=d)[1:],
+    "lgcp_grid": lambda d: lgcp.lgcp_grid(3, device=d)[1:],
+    "lgcp_target": lambda d: lgcp.lgcp_target(
+        np.ones(4, np.float32), np.eye(4, dtype=np.float32), 1.0, device=d
+    ).logdensity_and_grad(torch.zeros(2, 4, device=d)),
     "rats_data": lambda d: tex.rats_data(device=d),
     "rats_gibbs_model": lambda d: tex.rats_gibbs_model(device=d)[1],
     "rats_joint_target": lambda d: tex.rats_joint_target(device=d)[0].logdensity(

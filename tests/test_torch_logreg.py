@@ -5,6 +5,7 @@ interpret mode, and the autodiff oracle.  Inputs come from numpy
 summation order and, against the Pallas path, its padded-row log 2
 correction."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -114,7 +115,11 @@ def test_import_needs_no_nvcc_or_triton():
 
 def test_cuda_checks_refuse_what_k1_does_not_take():
     """The wrapper's checks, which run before any build or launch."""
-    with pytest.raises(ValueError, match="1 <= D <= 128"):
+    with pytest.raises(ValueError, match="D >= 1"):
+        logreg._check(torch.zeros(2, 0), torch.zeros(4, 0), torch.zeros(0))
+    # wider than the tensor-core form's 128 columns is K1's wide form, which
+    # only the device refuses here
+    with pytest.raises(ValueError, match="expected the CUDA device"):
         logreg._check(torch.zeros(2, 129), torch.zeros(4, 129), torch.zeros(129))
     with pytest.raises(ValueError, match="expected the CUDA device"):
         logreg._check(torch.zeros(2, 3), torch.zeros(4, 3), torch.zeros(3))
@@ -291,3 +296,53 @@ def test_prepare_x_pads_the_labels():
     prep = logreg.prepare_x(X, y)
     assert prep.y.shape == (64,) and torch.equal(prep.y[:33], y) and not prep.y[33:].any()
     assert prep.y.dtype == X.dtype and prep.y.is_contiguous()
+
+
+@pytest.mark.parametrize("D", [129, 200])
+def test_wide_form_arithmetic_matches_the_oracle(D):
+    """Wider than K1's 128-column tile the card runs K1's wide form: f32
+    products on the FP32 cores, the log-likelihood summed row by row.  Its
+    arithmetic in plain PyTorch (``logreg_value_grad_split``) against the
+    JAX autodiff oracle, with the tolerances of
+    ``test_plain_matches_xla_batched`` (f32 both sides, another reduction
+    order), and against float64 as f32-grade (rtol 2e-6, atol 1e-4, as
+    ``test_three_pass_split_is_f32_grade``)."""
+    P, X, y, lam = _problem(C=6, D=D, N=64, seed=D)
+    v, g = _split(P, X, y, lam, passes=3)
+    rv, rg = _oracle(P, X, y, lam)
+    np.testing.assert_allclose(v, rv, rtol=1e-5)
+    np.testing.assert_allclose(g, rg, atol=1e-4)
+    fv, fg = _f64_oracle(P, X, y, lam)
+    np.testing.assert_allclose(v, fv, rtol=2e-6, atol=1e-4)
+    np.testing.assert_allclose(g, fg, rtol=2e-6, atol=1e-4)
+
+
+@pytest.mark.parametrize("D", [129, 200])
+def test_prepare_x_for_the_wide_form(D):
+    """What the card's path makes of a wide X: ``prepare_x`` keeps X as it
+    is (the wide form reads it in place), pads the labels to whole tiles of
+    32 rows and counts the 128-column tiles; the wrapper's checks take it."""
+    P, X, y, _ = _problem(C=6, D=D, N=70, seed=D)
+    Xt = torch.from_numpy(X)
+    prep = logreg.prepare_x(Xt, torch.from_numpy(y))
+    assert prep.wide and prep.dim_padded == 256 and (prep.n_data, prep.dim) == (70, D)
+    assert torch.equal(prep.image, Xt) and prep.image.is_contiguous()
+    assert prep.y.shape == (96,) and torch.equal(prep.y[:70], torch.from_numpy(y))
+    assert not prep.y[70:].any()
+    rows, cols = prep.unpack()
+    assert torch.equal(rows, Xt) and torch.equal(cols, Xt)
+
+    class OnCuda:  # stands in for CUDA tensors: only what _check reads
+        def __init__(self, t):
+            self.t, self.shape, self.dtype = t, t.shape, t.dtype
+            self.device = torch.device("cuda", 0)
+
+        def dim(self):
+            return self.t.dim()
+
+        def is_contiguous(self):
+            return self.t.is_contiguous()
+
+    prep = dataclasses.replace(prep, image=OnCuda(prep.image))
+    logreg._check(OnCuda(torch.from_numpy(P)), OnCuda(Xt), OnCuda(torch.zeros(D)), 3, prep)
+    logreg._check(OnCuda(torch.from_numpy(P)), OnCuda(Xt), OnCuda(torch.zeros(D)), 1, prep)
