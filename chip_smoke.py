@@ -10,13 +10,14 @@
     python3 chip_smoke.py --profile DIR  # also profile stage 2 of both logreg rows and the Gibbs sweep
     python3 chip_smoke.py --stage1-sensitivity  # only: stage 1 with K1 and with the plain version, three seeds
     python3 chip_smoke.py --tracing-only  # phases 1-3 and 29 (the tracer's cost)
-    python3 chip_smoke.py --lgcp-only    # phases 1-3 and 30 (the LGCP, D = 4096; K1's wide form)
+    python3 chip_smoke.py --lgcp-only    # phases 1-3, 30 and 31 (the LGCP, D = 4096; K1's wide form; K3)
+    python3 chip_smoke.py --factor-only  # phases 1-3 and 31 (kernel K3, the factor products)
 
 Phases, each of which raises on failure (the script then exits non-zero):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the hand-written CUDA kernels from ``klara_tpu_torch/ops/csrc``
-   (K1 and K2, one nvcc each, started together);
+   (K1, K2 and K3, one nvcc each, started together);
 3. compare kernel K1 (batched logreg value+grad, three TF32 passes) with its
    plain PyTorch version on the card, TF32 off, at C=5/D=7/N=300, at the
    ragged C=200/D=100/N=1000 (every tile edge of the kernel), at C=4096 and
@@ -230,12 +231,29 @@ Phases, each of which raises on failure (the script then exits non-zero):
    graph units and once in the eager loop; raises unless both give the same
    final state, trace and diagnostics bit for bit and the same evaluation
    (``core.target.FACTOR_EVALUATIONS``, replay-aware) and K2 counts, and unless
-   the graph run replayed units; prints both walls and the graph run's
+   the graph run replayed units; both runs launch K3 twice an evaluation plus
+   once a call of the target's log-density outside one (replay-aware
+   ``ops.factor.KERNEL_LAUNCHES``); prints both walls and the graph run's
    evaluations.  Then logistic regressions wider than K1's 128-column tile
    (D = 129 and 200, N = 1000, 250 chains: ragged chains, rows, chunks and
    column tiles) build on the card, launch K1's wide form once an
    evaluation, and meet float64's value+grad within ``WIDE_LOGREG_TOL``
    (``passes=1``, TF32 operands, within ``WIDE_TF32_TOL``).
+31. (after phase 30, or with ``--factor-only``) kernel K3, the two products
+   with a lower-triangular factor (``klara_tpu_torch/ops/factor.py``): at
+   (C, D) = (1024, 4096), (1024, 2048) and (1024, 1024) (the LGCP's factors on
+   64 × 64, 64 × 32 and 32 × 32 grids) and at the ragged (1000, 1100), both
+   directions with and without their epilogues (the shift; −y) against
+   float64, each within ``K3_ERR_RATIO`` of cuBLAS f32's own error on the
+   same inputs (TF32 off); at the three timed shapes the time of each form
+   (CUDA events, 50 calls after warm-up) beside its bound (three TF32 passes
+   over the triangle's 128-wide tiles at 495 TFLOP/s), the useful one-pass
+   triangle (C·D(D+1) at 495 TFLOP/s) and the plain version's time, cuBLAS's
+   f32 ``@`` / ``addmm`` with Lᵀ held (``plain_ms``, also given as
+   ``library_ms``), which the port runs below ``ops.factor.MIN_DIM`` only;
+   and both again as 50 calls replayed from one CUDA graph (``graph_ms``,
+   ``plain_graph_ms``: device time alone, as the port's captured units and
+   sampling pay it, without the wrapper's host time between launches).
 
 The Gibbs paths launch no K1 (their sweep is plain torch ops in both
 packages); the kernels line records their K1 count, 0.  K2 makes every draw
@@ -345,6 +363,11 @@ GRAPH_WINDOW_STEPS, GRAPH_WINDOW_SWEEPS = 200, 500
 # N = 1000 rows and D columns against float64; with TF32 operands three
 # decimal digits)
 LGCP_GRID, LGCP_CHAINS, LGCP_BURNIN, LGCP_POST = 64, 1024, 60, 60
+# phase 31: K3's shapes (C, grid rows, grid columns), timed and checked, and the
+# ragged one checked; K3's error against float64 at most this many times cuBLAS f32's
+K3_TIMED = ((1024, 64, 64), (1024, 64, 32), (1024, 32, 32))
+K3_RAGGED = (1000, 44, 25)
+K3_ERR_RATIO = 2.0
 WIDE_LOGREG_TOL, WIDE_TF32_TOL = 1e-5, 1e-2
 WIDE_TIMED = (16384, 256, 1024)  # K1's wide form timed at (C, D, N)
 GRAPH_PROFILE_STEPS, GRAPH_PROFILE_SWEEPS = 60, 300
@@ -462,6 +485,25 @@ def _time_ms(fn, iters=50, warmup=5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _graph_ms(fn, iters=50, warmup=3) -> float:
+    """Device time of one call of ``fn``: ``iters`` calls captured in one
+    CUDA graph and replayed, so no host time lies between the launches (the
+    port's captured units and sampling run so)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    ms = _time_ms(graph.replay, iters=5, warmup=1) / iters
+    del graph
+    return ms
 
 
 def _k1_error(P, X, y, prior_var=100.0):
@@ -1657,13 +1699,24 @@ def run_lgcp_graphs_vs_eager(device="cuda", grid=LGCP_GRID, chains=LGCP_CHAINS,
     from klara_tpu_torch.jobs import graphs
     from klara_tpu_torch.models import lgcp
     from klara_tpu_torch.models.examples import synthetic_logistic_regression
-    from klara_tpu_torch.ops import keyed, logreg
+    from klara_tpu_torch.ops import factor, keyed, logreg
 
     t0 = time.perf_counter()
     target, counts, _ = lgcp.lgcp_grid(grid, device=device)
     _sync(device)
     res = {"grid": grid, "dim": grid * grid, "chains": chains, "counts": int(counts.sum()),
            "target_s": time.perf_counter() - t0}
+    # the log-density's calls outside an evaluation: one K3 forward product each
+    outside = [0]
+
+    def counted(fn):
+        def call(z):
+            outside[0] += 1
+            return fn(z)
+        return call
+
+    target = dataclasses.replace(target, logdensity_fn=counted(target.logdensity_fn),
+                                 loglikelihood_fn=counted(target.loglikelihood_fn))
 
     def run():
         sampler = kt.HMC(leapstep=0.05, nleaps=8, trajectory_length=0.5, jitter=0.9,
@@ -1677,6 +1730,7 @@ def run_lgcp_graphs_vs_eager(device="cuda", grid=LGCP_GRID, chains=LGCP_CHAINS,
         z0 = torch.randn(chains, grid * grid, generator=gen, device=device)
         _k2_reset()
         evals, k1 = core_target.FACTOR_EVALUATIONS, logreg.KERNEL_LAUNCHES
+        k3, outside[0] = factor.KERNEL_LAUNCHES, 0
         _sync(device)
         start = time.perf_counter()
         chain, timings = job.run_phased(gen, z0)
@@ -1684,7 +1738,8 @@ def run_lgcp_graphs_vs_eager(device="cuda", grid=LGCP_GRID, chains=LGCP_CHAINS,
         out = {"wall_s": time.perf_counter() - start, **timings,
                "evals": core_target.FACTOR_EVALUATIONS - evals, "k2": keyed.KERNEL_LAUNCHES,
                "k2_by_mode": {m: n for m, n in keyed.LAUNCHES_BY_MODE.items() if n},
-               "k1": logreg.KERNEL_LAUNCHES - k1, **_graph_counts()}
+               "k1": logreg.KERNEL_LAUNCHES - k1, "k3": factor.KERNEL_LAUNCHES - k3,
+               "logdensity_calls_outside": outside[0], **_graph_counts()}
         named = (_flat("final", chain.final_state) + _flat("trace", chain.samples)
                  + _flat("diag", chain.diagnostics))
         return named, out
@@ -1701,7 +1756,14 @@ def run_lgcp_graphs_vs_eager(device="cuda", grid=LGCP_GRID, chains=LGCP_CHAINS,
                            f"{e['graph_replays']} (eager form)")
     if g["k1"] or e["k1"]:
         raise RuntimeError("phase 30: the LGCP job launched K1")
-    for key in ("evals", "k2", "k2_by_mode"):
+    for run_, form in ((g, "graph"), (e, "eager")):
+        if run_["k3"] != 2 * run_["evals"] + run_["logdensity_calls_outside"]:
+            raise RuntimeError(f"phase 30: {run_['k3']} K3 launches in the {form} run against "
+                               f"{run_['evals']} evaluations and "
+                               f"{run_['logdensity_calls_outside']} calls outside them")
+    if g["k3_launches_in_replays"] <= 0:
+        raise RuntimeError("phase 30: no K3 launch came from a graph replay")
+    for key in ("evals", "k2", "k2_by_mode", "k3"):
         if g[key] != e[key]:
             raise RuntimeError(f"phase 30: {key} {g[key]} (graph) against {e[key]} (eager)")
     if [n for n, _ in g_out] != [n for n, _ in e_out]:
@@ -1761,6 +1823,99 @@ def run_lgcp_graphs_vs_eager(device="cuda", grid=LGCP_GRID, chains=LGCP_CHAINS,
     print(f"# phase 30 (the LGCP, graphs against eager): {json.dumps(res)}", flush=True)
     return res
 
+
+
+# ------------------------------------------ phase 31: K3, the factor products
+def _grid_factor(rows, cols):
+    """The LGCP's factor on a rows × cols grid, f32 (``models.lgcp``'s
+    covariance with the cells of a rectangle; D = rows · cols)."""
+    import numpy as np
+    from klara_tpu_torch.models import lgcp
+
+    n = max(rows, cols)
+    i, j = np.divmod(np.arange(rows * cols, dtype=np.float64), cols)
+    delta = np.hypot(i[:, None] - i[None, :], j[:, None] - j[None, :])
+    sigma = lgcp.SIGMA2 * np.exp(-delta / (n * lgcp.BETA))
+    return torch.from_numpy(np.linalg.cholesky(sigma)).float()
+
+
+def k3_bound_ms(C, D):
+    """The least time the card could take for one K3 product: three TF32
+    passes over the triangle's 128-wide tiles, 3 · 2·C·128²·T(T+1)/2
+    operations (T = D / 128, rounded up) at the dense TF32 peak; and the
+    useful one-pass triangle, C·D(D+1) operations at the same peak."""
+    T = -(-D // 128)
+    tiles_ms = 1e3 * 3 * 2 * C * 128 * 128 * (T * (T + 1) // 2) / TF32_PEAK_FLOPS
+    return tiles_ms, 1e3 * C * D * (D + 1) / TF32_PEAK_FLOPS
+
+
+def run_factor_kernel(device="cuda"):
+    """Phase 31: K3 against float64 beside cuBLAS f32, both directions and
+    epilogues, at ``K3_TIMED`` and ``K3_RAGGED``; timed at ``K3_TIMED``."""
+    from klara_tpu_torch.ops import factor
+
+    t_phase = time.perf_counter()
+    res = {"shapes": {}}
+    launches = factor.KERNEL_LAUNCHES
+    calls = 0
+    for C, rows, cols in (*K3_TIMED, K3_RAGGED):
+        D = rows * cols
+        timed = (C, rows, cols) in K3_TIMED
+        L = _grid_factor(rows, cols).to(device)
+        prepared = factor.prepare_factor(L)
+        g = torch.Generator(device=device).manual_seed(D)
+        A = torch.randn(C, D, generator=g, device=device)
+        shift = torch.randn(D, generator=g, device=device)
+        y = torch.randn(C, D, generator=g, device=device)
+        Ld, Ad, Lt = L.double(), A.double(), L.T.contiguous()
+        forms = {
+            "forward": (lambda: factor.factor_forward(A, prepared),
+                        lambda: factor.factor_forward_reference(A, Lt), Ad @ Ld.T),
+            "forward_shift": (lambda: factor.factor_forward(A, prepared, shift),
+                              lambda: factor.factor_forward_reference(A, Lt, shift),
+                              Ad @ Ld.T + shift.double()),
+            "gradient": (lambda: factor.factor_gradient(A, prepared),
+                         lambda: factor.factor_gradient_reference(A, L), Ad @ Ld),
+            "gradient_y": (lambda: factor.factor_gradient(A, prepared, y),
+                           lambda: factor.factor_gradient_reference(A, L, y),
+                           Ad @ Ld - y.double()),
+        }
+        bound_ms, useful_ms = k3_bound_ms(C, D)
+        shape = {"C": C, "D": D, "bound_ms": bound_ms, "useful_one_pass_ms": useful_ms}
+        for name, (kernel, plain, ref) in forms.items():
+            out, base = kernel(), plain()
+            calls += 1
+            _sync(device)
+            scale = float(ref.abs().max())
+            err = float((out.double() - ref).abs().max()) / scale
+            base_err = float((base.double() - ref).abs().max()) / scale
+            row = {"rel_err": err, "cublas_f32_rel_err": base_err}
+            if err > K3_ERR_RATIO * base_err:
+                raise RuntimeError(f"phase 31: K3 {name} at C={C} D={D} is off float64 by "
+                                   f"{err:.3e}, cuBLAS f32 by {base_err:.3e}")
+            if timed:
+                row["ms"] = _time_ms(kernel)
+                calls += 55
+                row["plain_ms"] = _time_ms(plain)
+                # the plain version is cuBLAS's f32 product with Lᵀ held: the library's
+                row["library_ms"] = row["plain_ms"]
+                # the same in a CUDA graph: device time alone, without the
+                # wrapper's host time between eager launches
+                row["graph_ms"] = _graph_ms(kernel)
+                calls += 53
+                row["plain_graph_ms"] = _graph_ms(plain)
+                row["bound_share"] = bound_ms / row["ms"]
+            shape[name] = row
+            del out, base
+        res["shapes"][f"{C}x{D}"] = shape
+        print(f"# phase 31 K3 at C={C} D={D}: {json.dumps(shape)}", flush=True)
+        del prepared, L, Ld, Ad, Lt, A, y, forms
+    res["launches"] = factor.KERNEL_LAUNCHES - launches
+    if res["launches"] != calls:
+        raise RuntimeError(f"phase 31: {res['launches']} K3 launches counted for {calls} calls")
+    res["seconds"] = time.perf_counter() - t_phase
+    print(f"# phase 31 (K3): {json.dumps(res)}", flush=True)
+    return res
 
 def run_gibbs_nested(conj_summary, device="cuda", chains=GIBBS_CHAINS, sweeps=NESTED_SWEEPS,
                      burnin=NESTED_BURNIN):
@@ -3164,18 +3319,19 @@ def _k2_reset():
     keyed.KERNEL_LAUNCHES = 0
     keyed.LAUNCHES_BY_MODE = {m: 0 for m in keyed.MODES}
     graphs.GRAPHS_CAPTURED = graphs.GRAPH_REPLAYS = 0
-    graphs.REPLAYED_LAUNCHES = {"k1": 0, "k2": 0}
+    graphs.REPLAYED_LAUNCHES = {"k1": 0, "k2": 0, "k3": 0}
 
 
 def _graph_counts(device="cuda", gate=None):
-    """The graphs captured and replayed since ``_k2_reset`` and the K1 and K2
-    launches the replays added; with ``gate`` (a path's name) on the card,
+    """The graphs captured and replayed since ``_k2_reset`` and the K1, K2 and
+    K3 launches the replays added; with ``gate`` (a path's name) on the card,
     raise unless the path replayed a graph."""
     from klara_tpu_torch.jobs import graphs
 
     out = {"graphs_captured": graphs.GRAPHS_CAPTURED, "graph_replays": graphs.GRAPH_REPLAYS,
            "k1_launches_in_replays": graphs.REPLAYED_LAUNCHES["k1"],
-           "k2_launches_in_replays": graphs.REPLAYED_LAUNCHES["k2"]}
+           "k2_launches_in_replays": graphs.REPLAYED_LAUNCHES["k2"],
+           "k3_launches_in_replays": graphs.REPLAYED_LAUNCHES["k3"]}
     if gate and torch.device(device).type == "cuda" and out["graph_replays"] <= 0:
         raise RuntimeError(f"{gate}: no graph was replayed")
     return out
@@ -3866,7 +4022,7 @@ def main():
 
     t0 = time.perf_counter()
     _build.build()
-    print(f"# K1 and K2 build (one nvcc each, in parallel): {time.perf_counter() - t0:.1f} s",
+    print(f"# K1, K2 and K3 build (one nvcc each, in parallel): {time.perf_counter() - t0:.1f} s",
           flush=True)
     print("# " + _build.build_log.strip().replace("\n", "\n# "), flush=True)
 
@@ -3893,6 +4049,11 @@ def main():
         return
     if "--lgcp-only" in sys.argv:
         run_lgcp_graphs_vs_eager()
+        run_factor_kernel()
+        print(card)
+        return
+    if "--factor-only" in sys.argv:
+        run_factor_kernel()
         print(card)
         return
     profile_dir = sys.argv[sys.argv.index("--profile") + 1] if "--profile" in sys.argv else None
@@ -3933,10 +4094,11 @@ def main():
           f"{gprof['k2_host_us_per_sweep']} us of host time in its K2 draws", flush=True)
     graphs28 = run_graphs_vs_eager(chees_end, (wjob, state, gen), (gjob, gchains, gv0, ggen))
     del chees_end, wjob, state
-    run_lgcp_graphs_vs_eager()
+    lgcp30 = run_lgcp_graphs_vs_eager()
     if "--graphs-only" in sys.argv:
         print(card)
         return
+    k3 = run_factor_kernel()
     nested = run_gibbs_nested(gibbs["by_key"])
     zoo = run_zoo_logreg(x_end, chees_summary)
     ars = run_zoo_ars()
@@ -4068,6 +4230,32 @@ def main():
             "gibbs_rats": gibbs[f"{short}_launches_in_replays"],
             **{f"phase28_{path}": graphs28[path]["graph"][f"{short}_launches_in_replays"]
                for path in ("chees_precond", "nuts_precond", "gibbs_rats")}}
+    # the LGCP's products at its shape (phase 31's first), its launches in phase 30's runs
+    k3_main = k3["shapes"]["%dx%d" % (K3_TIMED[0][0], K3_TIMED[0][1] * K3_TIMED[0][2])]
+    kernels["kernels"].append({
+        "name": "K3 tri_factor",
+        "route": "cuda",
+        "design": "wgmma, three TF32 passes over the factor's triangle, persistent longest first",
+        "source": "klara_tpu_torch/ops/csrc/tri_factor.cu",
+        # no Pallas kernel: the JAX package leaves these products to XLA
+        "replaces": None,
+        "launches": lgcp30["graph"]["k3"] + lgcp30["eager"]["k3"],
+        "launches_by_path": {"phase30_graph": lgcp30["graph"]["k3"],
+                             "phase30_eager": lgcp30["eager"]["k3"]},
+        # phase 31's timing runs on random inputs, off the main path: not in the total
+        "microbenchmark_launches": k3["launches"],
+        "launches_in_graph_replays_by_path": {
+            "phase30_graph": lgcp30["graph"]["k3_launches_in_replays"]},
+        "max_rel_err": max(row["rel_err"] for shape in k3["shapes"].values()
+                           for row in shape.values() if isinstance(row, dict)),
+        "ms": k3_main["forward_shift"]["ms"],
+        "ms_gradient": k3_main["gradient_y"]["ms"],
+        "plain_ms": k3_main["forward_shift"]["plain_ms"],
+        "bound_ms": k3_main["bound_ms"],
+        "bound_by": "operations",
+        "library_ms": k3_main["forward_shift"]["library_ms"],
+        "by_shape": k3["shapes"],
+    })
     print(json.dumps(kernels))
     print(card)
     print(json.dumps({"ok": True, "device": {

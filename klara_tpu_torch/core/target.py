@@ -25,6 +25,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from klara_tpu_torch.ops import factor
 from klara_tpu_torch.utils import tracing
 
 LogDensityFn = Callable[..., torch.Tensor]
@@ -265,23 +266,37 @@ def through_factor(value_and_grad, chol, shift=None, standard_normal: bool = Fal
     the latter in the second product's epilogue.  Returns (value_and_grad
     in y, the map y -> x).
 
+    Where ``ops.factor.engages(chol)`` (a CUDA float32 factor at least
+    ``ops.factor.MIN_DIM`` wide, a rule of the factor's shape) both products
+    are kernel K3's, over the factor's triangle, the shift and −y in its
+    epilogues, differentiable as the plain products are; below it and on
+    the CPU, cuBLAS's (``@``, ``addmm``: ``ops.factor``'s plain version).
+
     Each evaluation adds one to ``FACTOR_EVALUATIONS`` and its host time
     to the tracer's timed counter ``factor.host_ns``, a span ``factor``
     while recording (a graph replay runs neither)."""
     chol = torch.as_tensor(chol)
-    chol_t = chol.T.contiguous()
+    prepared = factor.prepare_factor(chol) if factor.engages(chol) else None
+    chol_t = chol.T.contiguous() if prepared is None else None
 
     def to_x(y):
-        return y @ chol_t if shift is None else torch.addmm(shift, y, chol_t)
+        if prepared is None:
+            return factor.factor_forward_reference(y, chol_t, shift)
+        return factor.factor_forward(y, prepared, shift)
+
+    def through(g, y):
+        y = y if standard_normal else None
+        if prepared is None:
+            return factor.factor_gradient_reference(g, chol, y)
+        return factor.factor_gradient(g, prepared, y)
 
     def value_and_grad_fn(y):
         global FACTOR_EVALUATIONS
         with tracing.timed("factor.host_ns", "factor"):
             v, g = value_and_grad(to_x(y))
-            if not standard_normal:
-                out = v, g @ chol
-            else:
-                out = v - 0.5 * (y * y).sum(-1), torch.addmm(y, g, chol, beta=-1.0)
+            if standard_normal:
+                v = v - 0.5 * (y * y).sum(-1)
+            out = v, through(g, y)
         FACTOR_EVALUATIONS += 1
         return out
 

@@ -78,7 +78,7 @@ Where trouble lies, and what is done about it:
   operands'.  So blocks are captured per run, from that run's stream and
   state tensors (``Units`` belongs to one run), and never reused across runs.
 * Everything lazy happens before capture: the first block of every kind
-  runs eagerly on the capture stream, which builds and loads K1 and K2
+  runs eagerly on the capture stream, which builds and loads K1, K2 and K3
   (``_build.load``), fills K2's plans and cuBLAS's workspace for that stream,
   and allocates the staging buffers (outside the graph's pool).
 * Streams.  K1 launches on ``torch.cuda.current_stream``, K2 on
@@ -91,11 +91,12 @@ Where trouble lies, and what is done about it:
   ``torch.cuda.set_sync_debug_mode("error")``, and a capture that fails
   raises; nothing falls back to the eager loop.
 * Launch counters.  ``ops.logreg.KERNEL_LAUNCHES``, ``ops.keyed.KERNEL_LAUNCHES``
-  and ``LAUNCHES_BY_MODE`` count Python calls, as does
-  ``core.target.FACTOR_EVALUATIONS`` the evaluations through a factor (the
-  LGCP's launch neither kernel).  A capture calls the wrappers but runs nothing, so the counts a
-  capture adds are recorded and taken back (``launches_of``), and every
-  replay adds them (``add_launches``): the counts equal the eager loop's.
+  and ``LAUNCHES_BY_MODE`` and ``ops.factor.KERNEL_LAUNCHES`` count Python
+  calls, as does ``core.target.FACTOR_EVALUATIONS`` the evaluations through a
+  factor (at D = 4096 the LGCP's launch K3, two an evaluation).  A capture
+  calls the wrappers but runs nothing, so the counts a capture adds are
+  recorded and taken back (``launches_of``), and every replay adds them
+  (``add_launches``): the counts equal the eager loop's.
 * Memory.  A phase's graphs share one pool, which holds one block's
   intermediates; the staging buffers hold a block's saved rows, and HMC's
   trajectory between replays lives in tensors made by its first, eager
@@ -110,7 +111,7 @@ from typing import NamedTuple
 import torch
 
 from klara_tpu_torch.core import target as core_target
-from klara_tpu_torch.ops import keyed, logreg
+from klara_tpu_torch.ops import factor, keyed, logreg
 from klara_tpu_torch.samplers.hamiltonian import leap
 from klara_tpu_torch.samplers.hmc import HMC
 from klara_tpu_torch.samplers.nuts import NUTS
@@ -123,18 +124,20 @@ SWEEPS_PER_BLOCK = 100   # conjugate Gibbs sweeps a block
 # replays added to the wrappers' counters (plain counters; reset by assignment)
 GRAPHS_CAPTURED = 0
 GRAPH_REPLAYS = 0
-REPLAYED_LAUNCHES = {"k1": 0, "k2": 0}
+REPLAYED_LAUNCHES = {"k1": 0, "k2": 0, "k3": 0}
 
 
 # ---------------------------------------------------------- launch counters
 class Launches(NamedTuple):
-    """What the wrappers counted: K1's and K2's launches, K2's by mode, and
-    the evaluations through a factor (``core.target.through_factor``)."""
+    """What the wrappers counted: K1's and K2's launches, K2's by mode, the
+    evaluations through a factor (``core.target.through_factor``) and K3's
+    launches."""
 
     k1: int
     k2: int
     k2_by_mode: dict
     evals: int = 0
+    k3: int = 0
 
 
 def launches_of(fn) -> Launches:
@@ -142,16 +145,16 @@ def launches_of(fn) -> Launches:
     the counters set back to where they were: what a capture records, since
     it calls the wrappers but launches nothing."""
     k1, k2, modes = logreg.KERNEL_LAUNCHES, keyed.KERNEL_LAUNCHES, dict(keyed.LAUNCHES_BY_MODE)
-    evals = core_target.FACTOR_EVALUATIONS
+    evals, k3 = core_target.FACTOR_EVALUATIONS, factor.KERNEL_LAUNCHES
     try:
         fn()
     finally:
         now = keyed.LAUNCHES_BY_MODE
         rec = Launches(logreg.KERNEL_LAUNCHES - k1, keyed.KERNEL_LAUNCHES - k2,
                        {m: n - modes.get(m, 0) for m, n in now.items() if n != modes.get(m, 0)},
-                       core_target.FACTOR_EVALUATIONS - evals)
+                       core_target.FACTOR_EVALUATIONS - evals, factor.KERNEL_LAUNCHES - k3)
         logreg.KERNEL_LAUNCHES, keyed.KERNEL_LAUNCHES = k1, k2
-        core_target.FACTOR_EVALUATIONS = evals
+        core_target.FACTOR_EVALUATIONS, factor.KERNEL_LAUNCHES = evals, k3
         now.update(modes)
     return rec
 
@@ -161,10 +164,12 @@ def add_launches(rec: Launches) -> None:
     logreg.KERNEL_LAUNCHES += rec.k1
     keyed.KERNEL_LAUNCHES += rec.k2
     core_target.FACTOR_EVALUATIONS += rec.evals
+    factor.KERNEL_LAUNCHES += rec.k3
     for mode, n in rec.k2_by_mode.items():
         keyed.LAUNCHES_BY_MODE[mode] += n
     REPLAYED_LAUNCHES["k1"] += rec.k1
     REPLAYED_LAUNCHES["k2"] += rec.k2
+    REPLAYED_LAUNCHES["k3"] += rec.k3
 
 
 # -------------------------------------------------------------------- units

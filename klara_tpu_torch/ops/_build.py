@@ -35,6 +35,9 @@ ENTRY = {
     # the launch arguments packed in one struct (keyed.py: _ARGS), the stream
     "keyed_draws": {"klara_keyed_draws": [ctypes.c_char_p, _P],
                     "klara_keyed_draws_info": [_I, _I, _P]},
+    # the batch, the factor's slots, the shift or y (or null), the output;
+    # C, D, forward, the grid; the stream
+    "tri_factor": {"klara_tri_factor": [_P] * 4 + [_I] * 4 + [_P]},
 }
 
 _libs = {}

@@ -39,8 +39,8 @@ units), ``eager_block``, ``capture``, ``replay.<kind>``, ``adapt.*`` and
 ``leapfrog_bounds``, ``step_search``, ``chees_scalars`` inside
 ``adapt.chees``, ``block_bounds``, ``sync``, ``overflow``, ``checkin``),
 ``graphs.eager_blocks``, ``graphs.captures``, ``graphs.replays.<kind>``,
-``k1.host_ns`` and ``k2.host_ns`` (host time inside the kernels'
-wrappers; on the CPU, their plain versions'), ``factor.host_ns`` (inside an
+``k1.host_ns``, ``k2.host_ns`` and ``k3.host_ns`` (host time inside the
+kernels' wrappers; on the CPU, their plain versions'), ``factor.host_ns`` (inside an
 evaluation through a factor, ``core.target.through_factor``, a span
 ``factor`` while recording); the count
 ``graphs.eager_steps``.
@@ -67,6 +67,7 @@ _profiling = torch.autograd._profiler_enabled
 _MODULE_COUNTERS = (
     ("core.target", "FACTOR_EVALUATIONS"),
     ("ops.logreg", "KERNEL_LAUNCHES"),
+    ("ops.factor", "KERNEL_LAUNCHES"),
     ("ops.keyed", "KERNEL_LAUNCHES"),
     ("ops.keyed", "LAUNCHES_BY_MODE"),
     ("jobs.graphs", "GRAPHS_CAPTURED"),

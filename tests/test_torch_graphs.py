@@ -344,7 +344,7 @@ def counters(monkeypatch):
     monkeypatch.setattr(keyed, "LAUNCHES_BY_MODE", {m: 0 for m in keyed.MODES})
     monkeypatch.setattr(graphs, "GRAPHS_CAPTURED", 0)
     monkeypatch.setattr(graphs, "GRAPH_REPLAYS", 0)
-    monkeypatch.setattr(graphs, "REPLAYED_LAUNCHES", {"k1": 0, "k2": 0})
+    monkeypatch.setattr(graphs, "REPLAYED_LAUNCHES", {"k1": 0, "k2": 0, "k3": 0})
 
 
 def test_replays_add_the_launches_a_capture_recorded(monkeypatch, counters):
@@ -365,7 +365,7 @@ def test_replays_add_the_launches_a_capture_recorded(monkeypatch, counters):
     assert (logreg.KERNEL_LAUNCHES, keyed.KERNEL_LAUNCHES) == (5, 10)
     assert keyed.LAUNCHES_BY_MODE["normal"] == 10
     assert (graphs.GRAPHS_CAPTURED, graphs.GRAPH_REPLAYS) == (1, 4)
-    assert graphs.REPLAYED_LAUNCHES == {"k1": 4, "k2": 8}
+    assert graphs.REPLAYED_LAUNCHES == {"k1": 4, "k2": 8, "k3": 0}
 
 
 def test_a_failed_capture_raises_and_runs_nothing_eagerly(monkeypatch, counters):
