@@ -467,6 +467,80 @@ K2_TIMES_TIMEOUT = 600  # seconds for phase 27's timing process (~20 s on an H10
 K2_GAMMA_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 
 
+# ------------------------------------------------ the program's counts
+K1, K2 = "ops.logreg.KERNEL_LAUNCHES", "ops.keyed.KERNEL_LAUNCHES"
+K3, EVALS = "ops.factor.KERNEL_LAUNCHES", "core.target.FACTOR_EVALUATIONS"
+_MARK = {}       # the tracer's counts at the last ``_zero``
+_REPLAYED = {}   # the counts graph replays added since then, by name
+_recount = None  # the tracer's ``recount``, which ``_tally`` wraps
+
+
+def _tally(record):
+    """``tracing.recount`` (a graph replay's counts), tallied in ``_REPLAYED``."""
+    for name, n in record:
+        _REPLAYED[name] = _REPLAYED.get(name, 0) + n
+    _recount(record)
+
+
+def _zero():
+    """Count from here (before a path's run): ``_count`` and ``_graph_counts``
+    read the tracer's counts since this call.  The first call has every
+    graph replay's counts tallied by ``_tally`` too."""
+    global _recount
+    from klara_tpu_torch.utils import tracing
+
+    if tracing.recount is not _tally:
+        _recount, tracing.recount = tracing.recount, _tally
+    _MARK.clear()
+    _MARK.update((name, n) for name, (n, _) in tracing.counters().items())
+    _REPLAYED.clear()
+
+
+def _count(name):
+    """The tracer's count of ``name`` since the last ``_zero``."""
+    from klara_tpu_torch.utils import tracing
+
+    return tracing.counters().get(name, (0, 0))[0] - _MARK.get(name, 0)
+
+
+def _by_prefix(prefix):
+    """{the rest of the name: its count since the last ``_zero``} of the
+    tracer's names that start with ``prefix`` and moved."""
+    from klara_tpu_torch.utils import tracing
+
+    out = {name[len(prefix):]: _count(name) for name in tracing.counters()
+           if name.startswith(prefix)}
+    return {k: n for k, n in out.items() if n}
+
+
+def _by_mode():
+    """K2's launches by mode since the last ``_zero`` (the modes it launched)."""
+    return _by_prefix("ops.keyed.LAUNCHES_BY_MODE.")
+
+
+def _collectives():
+    """The mesh helpers' collectives by kind, as the tracer counts them."""
+    from klara_tpu_torch.utils import tracing
+
+    c = tracing.counters()
+    return {k: c.get("parallel.mesh.COLLECTIVES." + k, (0, 0))[0]
+            for k in ("all_reduce", "all_gather", "gathered_elements")}
+
+
+def _graph_counts(device="cuda", gate=None):
+    """The graphs captured and replayed since the last ``_zero`` and the K1,
+    K2 and K3 launches the replays added; with ``gate`` (a path's name) on
+    the card, raise unless the path replayed a graph."""
+    out = {"graphs_captured": _count("graphs.captures"),
+           "graph_replays": sum(_by_prefix("graphs.replays.").values()),
+           "k1_launches_in_replays": _REPLAYED.get(K1, 0),
+           "k2_launches_in_replays": _REPLAYED.get(K2, 0),
+           "k3_launches_in_replays": _REPLAYED.get(K3, 0)}
+    if gate and torch.device(device).type == "cuda" and out["graph_replays"] <= 0:
+        raise RuntimeError(f"{gate}: no graph was replayed")
+    return out
+
+
 def _card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -677,12 +751,10 @@ def _marked(sampler_cls, marks):
     initialises it: as stage 2's sampler it reads stage 1's launches."""
     import dataclasses
 
-    from klara_tpu_torch.ops import logreg
-
     @dataclasses.dataclass(frozen=True)
     class Marked(sampler_cls):
         def init(self, *args, **kw):
-            marks.append(logreg.KERNEL_LAUNCHES)
+            marks.append(_count(K1))
             return super().init(*args, **kw)
 
     return Marked
@@ -732,8 +804,6 @@ def run_main_path(device="cuda", chains=CHAINS, dim=DIM, n_data=N_DATA, burnin=B
     (stationary draws, the zoo's start) and the run's ``_fingerprint``."""
     import klara_tpu_torch as kt
     from klara_tpu_torch.models.examples import synthetic_logistic_regression
-    from klara_tpu_torch.ops import logreg
-    from klara_tpu_torch.parallel.mesh import COLLECTIVES
 
     target, X, y = synthetic_logistic_regression(dim=dim, n_data=n_data, device=device)
     stage2_start = []
@@ -743,9 +813,8 @@ def run_main_path(device="cuda", chains=CHAINS, dim=DIM, n_data=N_DATA, burnin=B
     gen = torch.Generator(device=device).manual_seed(42)
     x0 = 0.1 * torch.randn(chains, dim, generator=gen, device=device)
 
-    logreg.KERNEL_LAUNCHES = 0
-    _k2_reset()
-    reduces0 = COLLECTIVES["all_reduce"]
+    _zero()
+    reduces0 = _collectives()["all_reduce"]
     t0 = time.perf_counter()
     chain, timings, info = job.run_preconditioned(
         gen, x0, stage2_replace=dict(sampler=s2, traj_adaptation=False),
@@ -754,9 +823,9 @@ def run_main_path(device="cuda", chains=CHAINS, dim=DIM, n_data=N_DATA, burnin=B
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches, k2 = logreg.KERNEL_LAUNCHES, _k2_launches()
+    launches, k2 = _count(K1), _count(K2)
     replays = _graph_counts(device, "chees_precond")
-    reduces = COLLECTIVES["all_reduce"] - reduces0
+    reduces = _collectives()["all_reduce"] - reduces0
 
     values, chol = chain.value, info["chol"]
     if tuple(values.shape) != (post, chains, dim):
@@ -854,7 +923,6 @@ def run_nuts_precond(chees_summary, device="cuda", chains=CHAINS, dim=DIM,
 
     import klara_tpu_torch as kt
     from klara_tpu_torch.models.examples import synthetic_logistic_regression
-    from klara_tpu_torch.ops import logreg
 
     stage2_start = []
     nuts3 = _marked(kt.NUTS, stage2_start)(max_doublings=3)
@@ -863,15 +931,14 @@ def run_nuts_precond(chees_summary, device="cuda", chains=CHAINS, dim=DIM,
     gen = torch.Generator(device=device).manual_seed(42)
     x0 = 0.1 * torch.randn(chains, dim, generator=gen, device=device)
 
-    logreg.KERNEL_LAUNCHES = 0
-    _k2_reset()
+    _zero()
     chain, timings, info = job.run_preconditioned(
         gen, x0, stage2_replace=dict(sampler=nuts3,
                                      traj_adaptation=False, diagnostics=("accept", "na")),
         back_transform=False,
     )
     torch.cuda.synchronize()
-    launches, k2 = logreg.KERNEL_LAUNCHES, _k2_launches()
+    launches, k2 = _count(K1), _count(K2)
     replays = _graph_counts(device, "nuts_precond")
     stage2 = launches - stage2_start[0]
 
@@ -972,7 +1039,7 @@ def profile_nuts(wjob, state, gen, out_dir, window=200, warm=20):
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     nuts_mod.leapfrog_step, kt.NUTS.draws = leap, draws
-    _k2_reset()
+    _zero()
     try:
         with torch.profiler.profile(activities=acts) as prof:
             t0 = time.perf_counter()
@@ -981,7 +1048,7 @@ def profile_nuts(wjob, state, gen, out_dir, window=200, warm=20):
             wall_profiled = 1e3 * (time.perf_counter() - t0)
     finally:
         nuts_mod.leapfrog_step, kt.NUTS.draws = leap0, draws0
-    k2_launched = _k2_launches()
+    k2_launched = _count(K2)
     t0 = time.perf_counter()
     wjob._loop(state, stream, i0 + window, i0 + 2 * window, False, buffers)
     torch.cuda.synchronize()
@@ -1055,13 +1122,13 @@ def profile_chees(wjob, state, gen, out_dir, window=200, warm=20):
     state = wjob._loop(state, stream, wjob.mcrange.burnin, i0, False, buffers)
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    _k2_reset()
+    _zero()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         state = wjob._loop(state, stream, i0, i0 + window, False, buffers)
         torch.cuda.synchronize()
         wall_profiled = 1e3 * (time.perf_counter() - t0)
-    k2_launched = _k2_launches()
+    k2_launched = _count(K2)
     t0 = time.perf_counter()
     wjob._loop(state, stream, i0 + window, i0 + 2 * window, False, buffers)
     torch.cuda.synchronize()
@@ -1158,7 +1225,6 @@ def run_nuts_looped(wjob, state, chol, gen, na_static, data, chains=SMALL_CHAINS
     import dataclasses
 
     import klara_tpu_torch as kt
-    from klara_tpu_torch.ops import logreg
 
     looped = kt.NUTS(max_doublings=3, tree_impl="looped")
     job = dataclasses.replace(
@@ -1166,11 +1232,10 @@ def run_nuts_looped(wjob, state, chol, gen, na_static, data, chains=SMALL_CHAINS
         mcrange=kt.MCRange(n_steps=burnin + post, burnin=burnin),
     )
     y0 = state.position[:chains].contiguous()
-    logreg.KERNEL_LAUNCHES = 0
-    _k2_reset()
+    _zero()
     chain, timings = job.run_phased(gen, y0)
     torch.cuda.synchronize()
-    launches, k2 = logreg.KERNEL_LAUNCHES, _k2_launches()
+    launches, k2 = _count(K1), _count(K2)
 
     values = chain.value
     if not bool(torch.isfinite(values).all()):
@@ -1207,7 +1272,6 @@ def run_nuts_raw(device="cuda", chains=SMALL_CHAINS, dim=DIM, n_data=N_DATA,
     its final positions and both tree forms on the same draws from them."""
     import klara_tpu_torch as kt
     from klara_tpu_torch.models.examples import synthetic_logistic_regression
-    from klara_tpu_torch.ops import logreg
 
     target, X, y = synthetic_logistic_regression(dim=dim, n_data=n_data, device=device)
     n_stored = post // thinning
@@ -1221,11 +1285,10 @@ def run_nuts_raw(device="cuda", chains=SMALL_CHAINS, dim=DIM, n_data=N_DATA,
     )
     gen = torch.Generator(device=device).manual_seed(42)
     x0 = 0.1 * torch.randn(chains, dim, generator=gen, device=device)
-    logreg.KERNEL_LAUNCHES = 0
-    _k2_reset()
+    _zero()
     chain, timings = job.run_phased(gen, x0)
     torch.cuda.synchronize()
-    launches, k2 = logreg.KERNEL_LAUNCHES, _k2_launches()
+    launches, k2 = _count(K1), _count(K2)
 
     values = chain.value
     if not bool(torch.isfinite(values).all()):
@@ -1287,7 +1350,6 @@ def run_gibbs_rats(device="cuda", chains=GIBBS_CHAINS, sweeps=GIBBS_SWEEPS,
     the last run's chains, v0 and the generator."""
     import klara_tpu_torch as kt
     from klara_tpu_torch.models.examples import rats_gibbs_model
-    from klara_tpu_torch.ops import logreg
 
     model, v0 = rats_gibbs_model(device=device)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -1298,14 +1360,13 @@ def run_gibbs_rats(device="cuda", chains=GIBBS_CHAINS, sweeps=GIBBS_SWEEPS,
 
     _, warm_secs = _timed_gibbs(job(burnin + warm), gen, v0, device)
     full = job(sweeps)
-    logreg.KERNEL_LAUNCHES = 0
-    _k2_reset()
+    _zero()
     out, secs = _timed_gibbs(full, gen, v0, device)
-    launches, k2 = logreg.KERNEL_LAUNCHES, _k2_launches()
+    launches, k2 = _count(K1), _count(K2)
     replays = _graph_counts(device, "gibbs_rats")
     from klara_tpu_torch.ops import keyed
 
-    k2_by_mode = dict(keyed.LAUNCHES_BY_MODE)
+    k2_by_mode = {**dict.fromkeys(keyed.MODES, 0), **_by_mode()}
 
     where = {t.device.type for t in (*out.samples.values(), *out.final_values.values())}
     if where != {torch.device(device).type}:
@@ -1455,10 +1516,7 @@ def _bits_equal(a, b) -> bool:
 
 
 def _launch_counts():
-    from klara_tpu_torch.ops import keyed, logreg
-
-    return {"k1": logreg.KERNEL_LAUNCHES, "k2": keyed.KERNEL_LAUNCHES,
-            "k2_by_mode": {m: n for m, n in keyed.LAUNCHES_BY_MODE.items() if n}}
+    return {"k1": _count(K1), "k2": _count(K2), "k2_by_mode": _by_mode()}
 
 
 def _one_form(run, n, device, window):
@@ -1468,7 +1526,6 @@ def _one_form(run, n, device, window):
     peak of allocated memory, and a profiled ``window`` of the same work for
     the kernels the profiler records."""
     from klara_tpu_torch.jobs import graphs
-    from klara_tpu_torch.ops import logreg
 
     events, drain = [], graphs.Staging.drain
 
@@ -1478,8 +1535,7 @@ def _one_form(run, n, device, window):
         ev.record()
         events.append(ev)
 
-    logreg.KERNEL_LAUNCHES = 0
-    _k2_reset()
+    _zero()
     _sync(device)
     torch.cuda.reset_peak_memory_stats()
     graphs.Staging.drain = timed_drain
@@ -1695,11 +1751,10 @@ def run_lgcp_graphs_vs_eager(device="cuda", grid=LGCP_GRID, chains=LGCP_CHAINS,
     and run key; bit for bit, with equal evaluation and K2 counts.  Then
     K1's wide form at D = 129 and 200 against float64."""
     import klara_tpu_torch as kt
-    from klara_tpu_torch.core import target as core_target
     from klara_tpu_torch.jobs import graphs
     from klara_tpu_torch.models import lgcp
     from klara_tpu_torch.models.examples import synthetic_logistic_regression
-    from klara_tpu_torch.ops import factor, keyed, logreg
+    from klara_tpu_torch.ops import logreg
 
     t0 = time.perf_counter()
     target, counts, _ = lgcp.lgcp_grid(grid, device=device)
@@ -1728,17 +1783,15 @@ def run_lgcp_graphs_vs_eager(device="cuda", grid=LGCP_GRID, chains=LGCP_CHAINS,
                        traj_adaptation=True, traj_lr=0.1, traj_start_frac=0.1, device=device)
         gen = torch.Generator(device=device).manual_seed(30)
         z0 = torch.randn(chains, grid * grid, generator=gen, device=device)
-        _k2_reset()
-        evals, k1 = core_target.FACTOR_EVALUATIONS, logreg.KERNEL_LAUNCHES
-        k3, outside[0] = factor.KERNEL_LAUNCHES, 0
+        _zero()
+        outside[0] = 0
         _sync(device)
         start = time.perf_counter()
         chain, timings = job.run_phased(gen, z0)
         _sync(device)
         out = {"wall_s": time.perf_counter() - start, **timings,
-               "evals": core_target.FACTOR_EVALUATIONS - evals, "k2": keyed.KERNEL_LAUNCHES,
-               "k2_by_mode": {m: n for m, n in keyed.LAUNCHES_BY_MODE.items() if n},
-               "k1": logreg.KERNEL_LAUNCHES - k1, "k3": factor.KERNEL_LAUNCHES - k3,
+               "evals": _count(EVALS), "k2": _count(K2), "k2_by_mode": _by_mode(),
+               "k1": _count(K1), "k3": _count(K3),
                "logdensity_calls_outside": outside[0], **_graph_counts()}
         named = (_flat("final", chain.final_state) + _flat("trace", chain.samples)
                  + _flat("diag", chain.diagnostics))
@@ -1784,9 +1837,9 @@ def run_lgcp_graphs_vs_eager(device="cuda", grid=LGCP_GRID, chains=LGCP_CHAINS,
         rv = (logits @ yd - torch.nn.functional.softplus(logits).sum(-1)
               - 0.5 * ((Pd * Pd).sum(-1) / 100.0 + dim * math.log(2.0 * math.pi * 100.0)))
         rg = (yd - torch.sigmoid(logits)) @ Xd - Pd / 100.0
-        k1 = logreg.KERNEL_LAUNCHES
+        k1 = _count(K1)
         v, grad = wide.logdensity_and_grad(P)
-        launched = logreg.KERNEL_LAUNCHES - k1
+        launched = _count(K1) - k1
         prepared = logreg.prepare_x(X, y)
         v1, g1 = logreg.logreg_value_grad(P, X, (X.T @ y).contiguous(), 100.0, passes=1,
                                           prepared=prepared)
@@ -1856,7 +1909,7 @@ def run_factor_kernel(device="cuda"):
 
     t_phase = time.perf_counter()
     res = {"shapes": {}}
-    launches = factor.KERNEL_LAUNCHES
+    launches = _count(K3)
     calls = 0
     for C, rows, cols in (*K3_TIMED, K3_RAGGED):
         D = rows * cols
@@ -1910,7 +1963,7 @@ def run_factor_kernel(device="cuda"):
         res["shapes"][f"{C}x{D}"] = shape
         print(f"# phase 31 K3 at C={C} D={D}: {json.dumps(shape)}", flush=True)
         del prepared, L, Ld, Ad, Lt, A, y, forms
-    res["launches"] = factor.KERNEL_LAUNCHES - launches
+    res["launches"] = _count(K3) - launches
     if res["launches"] != calls:
         raise RuntimeError(f"phase 31: {res['launches']} K3 launches counted for {calls} calls")
     res["seconds"] = time.perf_counter() - t_phase
@@ -1922,7 +1975,6 @@ def run_gibbs_nested(conj_summary, device="cuda", chains=GIBBS_CHAINS, sweeps=NE
     """Phase 11: MCMC-within-Gibbs on the card, against phase 9's posterior."""
     import klara_tpu_torch as kt
     from klara_tpu_torch.models.examples import rats_gibbs_model
-    from klara_tpu_torch.ops import logreg
 
     model, v0 = rats_gibbs_model(device=device, nested_alpha=True)
     spec = kt.Nested(kt.HMC(leapstep=0.05, nleaps=4), n_steps=4,
@@ -1932,10 +1984,9 @@ def run_gibbs_nested(conj_summary, device="cuda", chains=GIBBS_CHAINS, sweeps=NE
     if not job._needs_step_hoist(job.sweep["alpha"]):
         raise RuntimeError("the nested HMC block does not take the hoisted step-size search")
     gen = torch.Generator(device=device).manual_seed(1)
-    logreg.KERNEL_LAUNCHES = 0
-    _k2_reset()
+    _zero()
     out, secs = _timed_gibbs(job, gen, v0, device)
-    launches, k2 = logreg.KERNEL_LAUNCHES, _k2_launches()
+    launches, k2 = _count(K1), _count(K2)
     for v in (*out.samples.values(), out["alpha.accept"]):
         if not bool(torch.isfinite(v).all()):
             raise RuntimeError("non-finite draws in the nested rats trace")
@@ -2048,8 +2099,6 @@ def run_zoo_sampler(name, target, sampler, x0, ref_summary, *, burnin, post, thi
     With ``data`` (X, y) K1 is held against its plain version on the final
     positions."""
     import klara_tpu_torch as kt
-    from klara_tpu_torch.ops import logreg
-    from klara_tpu_torch.samplers import slice_sampler
 
     chains, dim = x0.shape
     n_steps = burnin + post
@@ -2059,12 +2108,10 @@ def run_zoo_sampler(name, target, sampler, x0, ref_summary, *, burnin, post, thi
         pooled_tuning=pooled, step_size=step_size,
     )
     gen = torch.Generator(device=x0.device).manual_seed(7)
-    logreg.KERNEL_LAUNCHES = 0
-    _k2_reset()
-    slice_sampler.HOST_READS = 0
+    _zero()
     chain, timings = job.run_phased(gen, x0)
-    launches, counted_reads = logreg.KERNEL_LAUNCHES, slice_sampler.HOST_READS
-    k2 = _k2_launches()
+    launches, counted_reads = _count(K1), _count("host_read.slice_shrink")
+    k2 = _count(K2)
 
     values = chain.value
     if not bool(torch.isfinite(values).all()):
@@ -2240,7 +2287,6 @@ def run_zoo_ars(device="cuda", chains=ZOO_CHAINS, dim=DIM, steps=ARS_STEPS):
     log-target is the target's at the final positions."""
     import klara_tpu_torch as kt
     from klara_tpu_torch.models.examples import normal_target
-    from klara_tpu_torch.ops import logreg
 
     target = normal_target(dim)
     ars = kt.ARS(logproposal=lambda x: -0.5 * torch.square(x / 2.0).sum(-1),
@@ -2248,10 +2294,9 @@ def run_zoo_ars(device="cuda", chains=ZOO_CHAINS, dim=DIM, steps=ARS_STEPS):
     job = kt.MCJob(target, ars, kt.MCRange(n_steps=steps, burnin=0), n_chains=chains,
                    monitor=("value", "logtarget"), diagnostics=("accept", "accept_stat", "weight"))
     gen = torch.Generator(device=device).manual_seed(7)
-    logreg.KERNEL_LAUNCHES = 0
-    _k2_reset()
+    _zero()
     chain, timings = job.run_phased(gen, torch.zeros(chains, dim, device=device))
-    k2 = _k2_launches()
+    k2 = _count(K2)
     accept = chain["accept"].to(torch.float64)
     stat = chain["accept_stat"].to(torch.float64)
     n = accept.numel()
@@ -2260,7 +2305,7 @@ def run_zoo_ars(device="cuda", chains=ZOO_CHAINS, dim=DIM, steps=ARS_STEPS):
     res = {
         "chains": chains, "steps": steps,
         "ms_per_step": 1e3 * timings["sampling_seconds"] / steps,
-        "k1_launches": logreg.KERNEL_LAUNCHES,
+        "k1_launches": _count(K1),
         "k2_launches": k2,
         "acceptance": float(accept.mean()),
         "mean_accept_stat": float(stat.mean()),
@@ -2298,18 +2343,16 @@ def check_monitor_slots(device="cuda", chains=64, draws=50):
     the likelihood's and the prior's."""
     import klara_tpu_torch as kt
     from klara_tpu_torch.models.examples import swiss_logistic_regression
-    from klara_tpu_torch.ops import logreg
 
     target, _, _ = swiss_logistic_regression(device=device)
     d = target.dim
     job = kt.MCJob(target, kt.MALA(driftstep=0.05), kt.MCRange(n_steps=draws + 10, burnin=10),
                    n_chains=chains, monitor=MONITOR_SLOTS)
     gen = torch.Generator(device=device).manual_seed(3)
-    logreg.KERNEL_LAUNCHES = 0
-    _k2_reset()
+    _zero()
     chain = job.run(gen, 0.1 * torch.randn(chains, d, generator=gen, device=device))
     _sync(device)
-    k2 = _k2_launches()
+    k2 = _count(K2)
     for f in MONITOR_SLOTS:
         rank = (0 if f.startswith("log") else 1 if f.startswith("grad") or f == "value"
                 else 2 if f.startswith("tensor") else 3)
@@ -2324,7 +2367,7 @@ def check_monitor_slots(device="cuda", chains=64, draws=50):
         whole, parts = chain[pre + "target"], chain[pre + "likelihood"] + chain[pre + "prior"]
         errs[pre + "target"] = float((whole - parts).abs().max())
         torch.testing.assert_close(whole, parts, rtol=1e-4, atol=tol)
-    res = {"chains": chains, "draws": draws, "k1_launches": logreg.KERNEL_LAUNCHES,
+    res = {"chains": chains, "draws": draws, "k1_launches": _count(K1),
            "k2_launches": k2,
            "acceptance": float(chain["accept"].to(torch.float32).mean()),
            "max_abs_err_target_minus_parts": errs}
@@ -2412,7 +2455,6 @@ def run_io_stream(x_end, tmp, device="cuda", chains=ZOO_CHAINS, dim=DIM, n_data=
     Returns (results, twin job, twin chain, twin's generator, (X, y))."""
     import klara_tpu_torch as kt
     from klara_tpu_torch.models.examples import synthetic_logistic_regression
-    from klara_tpu_torch.ops import logreg
     from klara_tpu_torch.utils import trace_profile
 
     target, X, y = synthetic_logistic_regression(dim=dim, n_data=n_data, device=device)
@@ -2422,12 +2464,11 @@ def run_io_stream(x_end, tmp, device="cuda", chains=ZOO_CHAINS, dim=DIM, n_data=
     job = _mala_io_job(target, chains, n_steps, burnin, destination="csv", filepath=csv_dir,
                        stream_chunk=chunk)
     spent = {"write": 0.0, "format": 0.0, "take": 0.0}
-    logreg.KERNEL_LAUNCHES = 0
-    _k2_reset()
+    _zero()
     with _timed_writer(spent):
         chain, reads, csv_secs = _counted(
             lambda: job.run(torch.Generator(device=device).manual_seed(IO_SEED), x0))
-    launches, k2 = logreg.KERNEL_LAUNCHES, _k2_launches()
+    launches, k2 = _count(K1), _count(K2)
 
     twin_job = _mala_io_job(target, chains, n_steps, burnin)
     gen = torch.Generator(device=device).manual_seed(IO_SEED)
@@ -2522,7 +2563,6 @@ def run_io_resume(job, twin, gen, data, tmp, device="cuda"):
     """Phase 22: checkpoint the twin's final state and generator, resume from
     the live ones and from the file; the two must agree bit for bit."""
     import klara_tpu_torch as kt
-    from klara_tpu_torch.ops import logreg
 
     path = os.path.join(tmp, "mala.npz")
     t0 = time.perf_counter()
@@ -2541,12 +2581,11 @@ def run_io_resume(job, twin, gen, data, tmp, device="cuda"):
             state.position.data_ptr() == twin.final_state.position.data_ptr()):
         failures.append("the checkpoint did not load into fresh card tensors and generator")
 
-    logreg.KERNEL_LAUNCHES = 0
-    _k2_reset()
+    _zero()
     live = job.resume(gen, twin)
     again = job.resume(tree["generator"], dataclasses.replace(twin, final_state=state))
     torch.cuda.synchronize()
-    launches, k2 = logreg.KERNEL_LAUNCHES, _k2_launches()
+    launches, k2 = _count(K1), _count(K2)
     for k in ("value", "logtarget", "accept"):
         if not torch.equal(live[k], again[k]):
             failures.append(f"the resumed {k} traces differ")
@@ -2575,7 +2614,6 @@ def run_io_gibbs(tmp, device="cuda", chains=GIBBS_CHAINS, sweeps=IO_GIBBS_SWEEPS
     run and resumed, against an all-nstate twin of the same seed."""
     import klara_tpu_torch as kt
     from klara_tpu_torch.models.examples import rats_gibbs_model
-    from klara_tpu_torch.ops import logreg
 
     model, v0 = rats_gibbs_model(device=device)
     dirs = {k: os.path.join(tmp, k) for k in IO_GIBBS_CSV}
@@ -2591,11 +2629,10 @@ def run_io_gibbs(tmp, device="cuda", chains=GIBBS_CHAINS, sweeps=IO_GIBBS_SWEEPS
         return first, j.resume(gen, first, v0)
 
     spent = {"write": 0.0, "format": 0.0, "take": 0.0}
-    logreg.KERNEL_LAUNCHES = 0
-    _k2_reset()
+    _zero()
     with _timed_writer(spent):
         (first, second), reads, secs = _counted(lambda: both(job))
-    launches, k2 = logreg.KERNEL_LAUNCHES, _k2_launches()
+    launches, k2 = _count(K1), _count(K2)
     (first_t, second_t), twin_reads, twin_secs = _counted(lambda: both(twin))
     n_post = kw["mcrange"].n_post
     flushes = 2 * _flushes(sweeps, burnin, 1, chunk)
@@ -2715,14 +2752,13 @@ def run_examples(device="cuda", names=SMOKE_EXAMPLES):
         raise RuntimeError(f"example registry import errors: {errors}")
     res, finals, t_phase = {}, {}, time.perf_counter()
     for name in names:
-        logreg.KERNEL_LAUNCHES = 0
-        _k2_reset()
+        _zero()
         t0 = time.perf_counter()
         out = registry[name](device=device)
         _sync(device)
         secs = time.perf_counter() - t0
-        res[name] = {"seconds": secs, "k1_launches": logreg.KERNEL_LAUNCHES,
-                     "k2_launches": _k2_launches(),
+        res[name] = {"seconds": secs, "k1_launches": _count(K1),
+                     "k2_launches": _count(K2),
                      "truth": check_example_output(name, out, device)}
         if name in K1_EXAMPLES:
             finals[name] = out.final_state.position
@@ -2760,14 +2796,14 @@ def check_meshed_no_host_read(wjob, state, gen, n_steps=5):
     import dataclasses
 
     import klara_tpu_torch as kt
-    from klara_tpu_torch.parallel.mesh import COLLECTIVES, chain_context
+    from klara_tpu_torch.parallel.mesh import chain_context
 
     job = dataclasses.replace(wjob, sampler=kt.NUTS(max_doublings=3), traj_adaptation=False)
     stream = job._run_stream(gen, state.position.device)
     with chain_context(job._block):
         nuts = job._init_states(stream, state.position)
     torch.cuda.synchronize()
-    before = COLLECTIVES["all_reduce"]
+    before = _collectives()["all_reduce"]
     mode = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2776,7 +2812,7 @@ def check_meshed_no_host_read(wjob, state, gen, n_steps=5):
     finally:
         torch.cuda.set_sync_debug_mode(mode)
     torch.cuda.synchronize()
-    reduces = COLLECTIVES["all_reduce"] - before
+    reduces = _collectives()["all_reduce"] - before
     if not bool(torch.isfinite(nuts.position).all()):
         raise RuntimeError("non-finite positions after the meshed sync-checked steps")
     if reduces != 2 * n_steps:
@@ -2813,7 +2849,6 @@ def run_meshed_main_path(phase4, phase4_fingerprint, device="cuda", **sizes):
     import torch.distributed as dist
 
     from examples_torch import multichip_scaling
-    from klara_tpu_torch.ops import logreg
     from klara_tpu_torch.parallel import chain_mesh
 
     t_phase = time.perf_counter()
@@ -2832,12 +2867,11 @@ def run_meshed_main_path(phase4, phase4_fingerprint, device="cuda", **sizes):
         del wjob, state
         res["all_reduce_ms"] = _all_reduce_ms(mesh)
         res["torch"] = f"{torch.__version__} (CUDA {torch.version.cuda})"
-        logreg.KERNEL_LAUNCHES = 0
-        _k2_reset()
+        _zero()
         scaling = multichip_scaling.main(n_chains=sizes.get("chains", CHAINS),
                                          n_steps=MULTICHIP_BURNIN + MULTICHIP_POST,
                                          burnin=MULTICHIP_BURNIN, device=device)
-        scaling["k1_launches"], scaling["k2_launches"] = logreg.KERNEL_LAUNCHES, _k2_launches()
+        scaling["k1_launches"], scaling["k2_launches"] = _count(K1), _count(K2)
         res["multichip_scaling"] = scaling
     finally:
         dist.destroy_process_group()
@@ -2852,7 +2886,6 @@ def _p26_mala(mesh, device="cuda"):
     chains."""
     import klara_tpu_torch as kt
     from klara_tpu_torch.models.examples import synthetic_logistic_regression
-    from klara_tpu_torch.ops import logreg
 
     target, _, _ = synthetic_logistic_regression(dim=DIM, n_data=N_DATA, device=device)
     job = kt.MCJob(target, kt.MALA(driftstep=P26_MALA_STEP),
@@ -2860,23 +2893,20 @@ def _p26_mala(mesh, device="cuda"):
                    n_chains=P26_CHAINS, monitor=("value",), mesh=mesh)
     gen = torch.Generator(device=device).manual_seed(26)
     x0 = 0.1 * torch.randn(P26_CHAINS, DIM, generator=gen, device=device)
-    logreg.KERNEL_LAUNCHES = 0
-    _k2_reset()
+    _zero()
     chain, collectives = _collectives_of(lambda: job.run(gen, x0))
     bits = chain.value.view(torch.int32).sum(-1, dtype=torch.int64)
     return {"bits": bits.cpu(), "position": chain.final_state.position.cpu(),
             "carried": chain.final_state.position.shape[0], "collectives": collectives,
-            "k1_launches": logreg.KERNEL_LAUNCHES, "k2_launches": _k2_launches(),
+            "k1_launches": _count(K1), "k2_launches": _count(K2),
             "acceptance": float(kt.stats.acceptance(chain))}
 
 
 def _collectives_of(fn):
     """``fn()`` and the collectives ``parallel.mesh``'s helpers issued in it."""
-    from klara_tpu_torch.parallel.mesh import COLLECTIVES
-
-    before = dict(COLLECTIVES)
+    before = _collectives()
     out = fn()
-    return out, {k: COLLECTIVES[k] - before[k] for k in COLLECTIVES}
+    return out, {k: n - before[k] for k, n in _collectives().items()}
 
 
 def _p26_rats(mesh, device="cuda"):
@@ -2885,13 +2915,11 @@ def _p26_rats(mesh, device="cuda"):
     collectives of its run."""
     import klara_tpu_torch as kt
     from klara_tpu_torch.models.examples import rats_gibbs_model
-    from klara_tpu_torch.ops import logreg
 
     model, v0 = rats_gibbs_model(device=device)
     job = kt.GibbsJob(model, {}, kt.MCRange(n_steps=P26_SWEEPS, burnin=IO_GIBBS_BURNIN),
                       n_chains=P26_CHAINS, monitor=GIBBS_MONITOR, device=device, mesh=mesh)
-    logreg.KERNEL_LAUNCHES = 0
-    _k2_reset()
+    _zero()
     out, collectives = _collectives_of(
         lambda: job.run(torch.Generator(device=device).manual_seed(5), v0))
     return {"samples": {k: v.cpu() for k, v in out.samples.items()},
@@ -2899,7 +2927,7 @@ def _p26_rats(mesh, device="cuda"):
             "carried": sorted({v.shape[0] for v in out.final_values.values()}
                               | {v.shape[1] for v in out.samples.values()}),
             "collectives": collectives,
-            "k1_launches": logreg.KERNEL_LAUNCHES, "k2_launches": _k2_launches()}
+            "k1_launches": _count(K1), "k2_launches": _count(K2)}
 
 
 def _p26_mh(mesh, device="cuda"):
@@ -2914,14 +2942,14 @@ def _p26_mh(mesh, device="cuda"):
                     symmetric=False)
     job = kt.MCJob(target, sampler, kt.MCRange(n_steps=P26_MH_STEPS, burnin=P26_BURNIN),
                    n_chains=P26_CHAINS, monitor=("value",), mesh=mesh)
-    _k2_reset()
+    _zero()
     chain, collectives = _collectives_of(
         lambda: job.run(torch.Generator(device=device).manual_seed(263),
                         torch.full((DIM,), 2.0, device=device)))
     bits = chain.value.view(torch.int32).sum(-1, dtype=torch.int64)
     return {"bits": bits.cpu(), "position": chain.final_state.position.cpu(),
             "carried": chain.final_state.position.shape[0], "collectives": collectives,
-            "k2_launches": _k2_launches(), "acceptance": float(kt.stats.acceptance(chain))}
+            "k2_launches": _count(K2), "acceptance": float(kt.stats.acceptance(chain))}
 
 
 def _file_digests(root):
@@ -2989,18 +3017,17 @@ def _p26_param(device="cuda"):
                                                burnin=P26_HMC_BURNIN),
                    tuner=kt.DualAveragingTuner(0.8, P26_HMC_BURNIN), n_chains=P26_CHAINS,
                    monitor=("value",), diagnostics=("accept", "nleaps"), mesh=mesh)
-    logreg.KERNEL_LAUNCHES = 0
-    _k2_reset()
+    _zero()
     chain = job.run(torch.Generator(device=device).manual_seed(262),
                     torch.zeros(DIM, device=device))
-    k2 = _k2_launches()
-    k1 = logreg.KERNEL_LAUNCHES
+    k2 = _count(K2)
+    k1 = _count(K1)
     leaps = chain["nleaps"]
     # run_phased's sampling on a target that runs collectives stays eager
     phased = dataclasses.replace(
         job, sampler=dataclasses.replace(sampler, jitter_style="step"),
         mcrange=kt.MCRange(n_steps=2 * P26_PHASED_STEPS, burnin=P26_PHASED_STEPS))
-    _k2_reset()
+    _zero()
     pchain, _ = phased.run_phased(torch.Generator(device=device).manual_seed(263),
                                   torch.zeros(DIM, device=device))
     graphs_run = _graph_counts()
@@ -3311,38 +3338,6 @@ def run_tracing_cost(device="cuda", chains=CHAINS, dim=DIM, n_data=N_DATA, burni
 
 
 # ------------------------------------------------ phase 27: K2, keyed draws
-def _k2_reset():
-    """Zero K2's launch counters and the graph counters (before a path's run)."""
-    from klara_tpu_torch.jobs import graphs
-    from klara_tpu_torch.ops import keyed
-
-    keyed.KERNEL_LAUNCHES = 0
-    keyed.LAUNCHES_BY_MODE = {m: 0 for m in keyed.MODES}
-    graphs.GRAPHS_CAPTURED = graphs.GRAPH_REPLAYS = 0
-    graphs.REPLAYED_LAUNCHES = {"k1": 0, "k2": 0, "k3": 0}
-
-
-def _graph_counts(device="cuda", gate=None):
-    """The graphs captured and replayed since ``_k2_reset`` and the K1, K2 and
-    K3 launches the replays added; with ``gate`` (a path's name) on the card,
-    raise unless the path replayed a graph."""
-    from klara_tpu_torch.jobs import graphs
-
-    out = {"graphs_captured": graphs.GRAPHS_CAPTURED, "graph_replays": graphs.GRAPH_REPLAYS,
-           "k1_launches_in_replays": graphs.REPLAYED_LAUNCHES["k1"],
-           "k2_launches_in_replays": graphs.REPLAYED_LAUNCHES["k2"],
-           "k3_launches_in_replays": graphs.REPLAYED_LAUNCHES["k3"]}
-    if gate and torch.device(device).type == "cuda" and out["graph_replays"] <= 0:
-        raise RuntimeError(f"{gate}: no graph was replayed")
-    return out
-
-
-def _k2_launches():
-    from klara_tpu_torch.ops import keyed
-
-    return keyed.KERNEL_LAUNCHES
-
-
 def _ulps(a, b):
     """|a − b| in units of b's last place."""
     mag = b.abs()

@@ -30,11 +30,9 @@ from klara_tpu_torch.utils import tracing
 
 LogDensityFn = Callable[..., torch.Tensor]
 
-# Value+grad evaluations through a factor (``through_factor``: the LGCP's
-# and a whitened target's) in this process, replays included: a plain
-# counter (reset it by assignment), replay-aware through
-# ``jobs.graphs.launches_of`` and ``add_launches``.
-FACTOR_EVALUATIONS = 0
+# the tracer's count of value+grad evaluations through a factor
+# (``through_factor``: the LGCP's and a whitened target's)
+_EVALUATIONS = "core.target.FACTOR_EVALUATIONS"
 
 
 def chain_sum(lp):
@@ -272,9 +270,10 @@ def through_factor(value_and_grad, chol, shift=None, standard_normal: bool = Fal
     epilogues, differentiable as the plain products are; below it and on
     the CPU, cuBLAS's (``@``, ``addmm``: ``ops.factor``'s plain version).
 
-    Each evaluation adds one to ``FACTOR_EVALUATIONS`` and its host time
-    to the tracer's timed counter ``factor.host_ns``, a span ``factor``
-    while recording (a graph replay runs neither)."""
+    Each evaluation adds one to the tracer's count
+    ``core.target.FACTOR_EVALUATIONS`` (a graph replay too) and its host
+    time to the timed counter ``factor.host_ns``, a span ``factor`` while
+    recording (a graph replay runs neither)."""
     chol = torch.as_tensor(chol)
     prepared = factor.prepare_factor(chol) if factor.engages(chol) else None
     chol_t = chol.T.contiguous() if prepared is None else None
@@ -291,13 +290,12 @@ def through_factor(value_and_grad, chol, shift=None, standard_normal: bool = Fal
         return factor.factor_gradient(g, prepared, y)
 
     def value_and_grad_fn(y):
-        global FACTOR_EVALUATIONS
         with tracing.timed("factor.host_ns", "factor"):
             v, g = value_and_grad(to_x(y))
             if standard_normal:
                 v = v - 0.5 * (y * y).sum(-1)
             out = v, through(g, y)
-        FACTOR_EVALUATIONS += 1
+        tracing.count(_EVALUATIONS)
         return out
 
     return value_and_grad_fn, to_x

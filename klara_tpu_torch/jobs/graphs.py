@@ -56,7 +56,7 @@ doubling); HMC with per-chain jitter; MALA and the rest of the sampler zoo;
 ``verbose`` and csv runs.  A job whose mesh has a param dimension of more than one rank stays
 eager too: its target (``param_sharded_logreg_target``) runs collectives in
 every evaluation, which a capture would bake into the graph (gloo refuses
-them under capture; NCCL's would replay uncounted in ``COLLECTIVES``).
+them under capture).
 
 A block's structure.  The state lives in tensors made before the first
 block (``_clone``); a block reads them, and ends by copying its final state
@@ -90,13 +90,12 @@ Where trouble lies, and what is done about it:
 * No host read and no host→device copy inside a block: a capture runs under
   ``torch.cuda.set_sync_debug_mode("error")``, and a capture that fails
   raises; nothing falls back to the eager loop.
-* Launch counters.  ``ops.logreg.KERNEL_LAUNCHES``, ``ops.keyed.KERNEL_LAUNCHES``
-  and ``LAUNCHES_BY_MODE`` and ``ops.factor.KERNEL_LAUNCHES`` count Python
-  calls, as does ``core.target.FACTOR_EVALUATIONS`` the evaluations through a
-  factor (at D = 4096 the LGCP's launch K3, two an evaluation).  A capture
-  calls the wrappers but runs nothing, so the counts a capture adds are
-  recorded and taken back (``launches_of``), and every replay adds them
-  (``add_launches``): the counts equal the eager loop's.
+* Counts.  The kernels' wrappers count their launches, and a target its
+  evaluations, with ``tracing.count`` at the Python call.  A capture calls
+  the wrappers but runs nothing, so the counts a body makes while captured
+  are the graph's record (``tracing.counted``), and every replay adds the
+  record once (``tracing.recount``): the counts equal the eager loop's,
+  whatever kernel counted them.
 * Memory.  A phase's graphs share one pool, which holds one block's
   intermediates; the staging buffers hold a block's saved rows, and HMC's
   trajectory between replays lives in tensors made by its first, eager
@@ -106,12 +105,8 @@ Where trouble lies, and what is done about it:
 
 from __future__ import annotations
 
-from typing import NamedTuple
-
 import torch
 
-from klara_tpu_torch.core import target as core_target
-from klara_tpu_torch.ops import factor, keyed, logreg
 from klara_tpu_torch.samplers.hamiltonian import leap
 from klara_tpu_torch.samplers.hmc import HMC
 from klara_tpu_torch.samplers.nuts import NUTS
@@ -119,58 +114,6 @@ from klara_tpu_torch.utils import tracing
 
 STEPS_PER_BLOCK = 20     # MCJob sampling steps a block (and leap counts a prepass)
 SWEEPS_PER_BLOCK = 100   # conjugate Gibbs sweeps a block
-
-# graphs captured and replayed in this process, and the kernel launches the
-# replays added to the wrappers' counters (plain counters; reset by assignment)
-GRAPHS_CAPTURED = 0
-GRAPH_REPLAYS = 0
-REPLAYED_LAUNCHES = {"k1": 0, "k2": 0, "k3": 0}
-
-
-# ---------------------------------------------------------- launch counters
-class Launches(NamedTuple):
-    """What the wrappers counted: K1's and K2's launches, K2's by mode, the
-    evaluations through a factor (``core.target.through_factor``) and K3's
-    launches."""
-
-    k1: int
-    k2: int
-    k2_by_mode: dict
-    evals: int = 0
-    k3: int = 0
-
-
-def launches_of(fn) -> Launches:
-    """Call ``fn`` and return the launches the wrappers counted in it, with
-    the counters set back to where they were: what a capture records, since
-    it calls the wrappers but launches nothing."""
-    k1, k2, modes = logreg.KERNEL_LAUNCHES, keyed.KERNEL_LAUNCHES, dict(keyed.LAUNCHES_BY_MODE)
-    evals, k3 = core_target.FACTOR_EVALUATIONS, factor.KERNEL_LAUNCHES
-    try:
-        fn()
-    finally:
-        now = keyed.LAUNCHES_BY_MODE
-        rec = Launches(logreg.KERNEL_LAUNCHES - k1, keyed.KERNEL_LAUNCHES - k2,
-                       {m: n - modes.get(m, 0) for m, n in now.items() if n != modes.get(m, 0)},
-                       core_target.FACTOR_EVALUATIONS - evals, factor.KERNEL_LAUNCHES - k3)
-        logreg.KERNEL_LAUNCHES, keyed.KERNEL_LAUNCHES = k1, k2
-        core_target.FACTOR_EVALUATIONS, factor.KERNEL_LAUNCHES = evals, k3
-        now.update(modes)
-    return rec
-
-
-def add_launches(rec: Launches) -> None:
-    """One replay's launches, added to the wrappers' counters."""
-    logreg.KERNEL_LAUNCHES += rec.k1
-    keyed.KERNEL_LAUNCHES += rec.k2
-    core_target.FACTOR_EVALUATIONS += rec.evals
-    factor.KERNEL_LAUNCHES += rec.k3
-    for mode, n in rec.k2_by_mode.items():
-        keyed.LAUNCHES_BY_MODE[mode] += n
-    REPLAYED_LAUNCHES["k1"] += rec.k1
-    REPLAYED_LAUNCHES["k2"] += rec.k2
-    REPLAYED_LAUNCHES["k3"] += rec.k3
-
 
 # -------------------------------------------------------------------- units
 def kind_of(key) -> str:
@@ -198,7 +141,7 @@ class Units:
         self.device = torch.device(device)
         self.capture = self.device.type == "cuda"
         self._seen = set()
-        self._graphs = {}  # key -> (graph, Launches)
+        self._graphs = {}  # key -> (graph, the counts its capture made)
         if self.capture:
             self.main = torch.cuda.current_stream(self.device)
             self._stream = torch.cuda.Stream(self.device)
@@ -207,7 +150,6 @@ class Units:
     def run(self, key, body) -> bool:
         """True where ``body`` ran as the card's eager first block of
         ``key``."""
-        global GRAPH_REPLAYS
         if not self.capture:
             body()
             return False
@@ -224,8 +166,7 @@ class Units:
         kind = kind_of(key)
         with tracing.timed(f"graphs.replays.{kind}", f"replay.{kind}"):
             self._launch(graph)
-        add_launches(rec)
-        GRAPH_REPLAYS += 1
+        tracing.recount(rec)
         return False
 
     def hold(self, tree):
@@ -251,13 +192,10 @@ class Units:
         self.main.wait_stream(self._stream)
 
     def _capture(self, body):
-        """(graph, launches) of ``body`` captured: the wrappers' counts of the
-        capture are recorded and taken back; a failed capture raises."""
-        global GRAPHS_CAPTURED
+        """(graph, the counts its capture made, not added: ``tracing.counted``)
+        of ``body`` captured; a failed capture raises."""
         graph = self._new_graph()
-        rec = launches_of(lambda: self._record(graph, body))
-        GRAPHS_CAPTURED += 1
-        return graph, rec
+        return graph, tracing.counted(lambda: self._record(graph, body))
 
     def _new_graph(self):
         return torch.cuda.CUDAGraph()

@@ -18,8 +18,8 @@ One evaluation is two (C, D)×(D, D) products around an exp, the products
 autograd.  Σ and its factor are made once per target in float64 (NumPy),
 the factor kept in float32; the value+grad is float32 throughout.
 
-Every evaluation counts as ``through_factor``'s do: one in
-``core.target.FACTOR_EVALUATIONS`` (replay-aware: eager, captured and
+Every evaluation counts as ``through_factor``'s do: one in the tracer's
+count ``core.target.FACTOR_EVALUATIONS`` (replay-aware: eager, captured and
 replayed evaluations total the eager loop's) and its host time in the
 tracer's ``factor.host_ns``, a span ``factor`` while recording.
 """

@@ -56,10 +56,8 @@ CHUNKS = TILE // CHUNK
 # (forward or not): see ``csrc/tri_factor.cu``
 RUN = {True: 8, False: 32}
 
-# Number of K3 launches in this process (a plain counter; reset it by
-# assignment), replay-aware through ``jobs.graphs.launches_of`` and
-# ``add_launches``.  Incremented only where the kernel is launched.
-KERNEL_LAUNCHES = 0
+# the tracer's count of K3 launches, made only where the kernel is launched
+_LAUNCHES = "ops.factor.KERNEL_LAUNCHES"
 
 _sms = {}  # device index -> streaming multiprocessors (the persistent grid)
 
@@ -223,7 +221,6 @@ def _check(a, prepared, extra, extra_shape, name):
 def _launch(a, prepared, extra, forward):
     """One K3 launch on the current stream (no synchronisation): the
     direction's product of the checked ``a`` with its epilogue ``extra``."""
-    global KERNEL_LAUNCHES
     from klara_tpu_torch.ops import _build
 
     device = a.device
@@ -243,7 +240,7 @@ def _launch(a, prepared, extra, forward):
                                   torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"K3 launch failed: cudaError {rc}")
-    KERNEL_LAUNCHES += 1
+    tracing.count(_LAUNCHES)
     return out
 
 

@@ -144,10 +144,18 @@ _ROUND_W = np.arange(10, dtype=np.uint64)[:, None] * np.array([_W0, _W1], dtype=
 _MASK_U64, _U32 = np.uint64(_MASK), np.uint64(32)
 _TWO_PI = 2.0 * math.pi
 
-# K2 launches in this process (plain counters; reset them by assignment).
-# Incremented only where the kernel is launched.
-KERNEL_LAUNCHES = 0
-LAUNCHES_BY_MODE = {name: 0 for name in MODES}
+# the tracer's counts of K2 launches, in all and by mode, made only where
+# the kernel is launched
+_LAUNCHES = "ops.keyed.KERNEL_LAUNCHES"
+_LAUNCHES_BY_MODE = {v: "ops.keyed.LAUNCHES_BY_MODE." + k for k, v in MODES.items()}
+
+
+def __getattr__(name):
+    """``KERNEL_LAUNCHES``, read-only: the tracer's count of K2 launches.
+    It serves ``portbench/counters.py`` until that file reads the tracer."""
+    if name == "KERNEL_LAUNCHES":
+        return tracing.counters().get(_LAUNCHES, (0, 0))[0]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 _OVERFLOW = {}     # device -> int32 (1,) count of elements that hit their cap
 _PENDING = set()   # devices with launches since the last raise_on_overflow
@@ -810,7 +818,6 @@ def draws(stream: KeyedStream, mode, shape, dtype, p0=None, p1=None, want_calls=
             raise RuntimeError(f"keyed draws: {overflow} element(s) reached the cap of "
                                "their rejection loop")
         return out, calls if want_calls else None
-    global KERNEL_LAUNCHES
     shape, _tensors, fields = launch_args(stream, mode, shape, dtype, p0, p1)
     key = stream._key
     out = key.new_empty(shape, dtype=dtype)
@@ -819,8 +826,8 @@ def draws(stream: KeyedStream, mode, shape, dtype, p0=None, p1=None, want_calls=
                                          *fields), _raw_stream(fields[-1]))
     if rc != 0:
         raise RuntimeError(f"K2 launch failed: cudaError {rc}")
-    KERNEL_LAUNCHES += 1
-    LAUNCHES_BY_MODE[_MODE_NAMES[mode]] += 1
+    tracing.count(_LAUNCHES)
+    tracing.count(_LAUNCHES_BY_MODE[mode])
     _PENDING.add(stream._device)
     tracing.add("k2.host_ns", time.perf_counter_ns() - t0)
     return out, calls

@@ -55,8 +55,8 @@ step is explicit.  The design:
 8. Output.  A csv run gathers each chunk of its ring (and a ``'post'``
    run its traces) to the first rank of the chains group
    (``gather_to_first``: host tensors on gloo, card tensors on NCCL; not
-   counted in ``COLLECTIVES``), and the mesh's first rank alone writes
-   (``writes_output``), so the files are the one process's byte for byte.
+   counted), and the mesh's first rank alone writes (``writes_output``),
+   so the files are the one process's byte for byte.
 9. Statistics of a meshed chain are global on every rank.  ``mean``,
    ``acceptance`` and the chain-summed ``ess`` all-reduce their sums;
    ``mcvar``, ``mcse``, ``iact`` and per-chain ``ess`` and ``mean`` compute
@@ -70,8 +70,8 @@ The reductions (and a sampler's stream keyed without a job) act on the
 block of the enclosing ``chain_context(block)``, and on no mesh outside
 one: a job enters it for the length of a run, a statistic of a meshed chain
 for its call, so the adaptation hooks and the statistics find the rank's
-block without a change of their signatures.  ``COLLECTIVES`` counts
-the helpers' calls.
+block without a change of their signatures.  The tracer's counts
+``parallel.mesh.COLLECTIVES.<kind>`` count the helpers' calls.
 """
 
 from __future__ import annotations
@@ -87,11 +87,7 @@ import torch
 import torch.distributed as dist
 
 from klara_tpu_torch.core.device import resolve_device
-
-# Collectives issued by this module's helpers in this process (a plain
-# counter, reset by assignment), by kind, and the elements all-gathers
-# brought in from every rank.
-COLLECTIVES = {"all_reduce": 0, "all_gather": 0, "gathered_elements": 0}
+from klara_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,7 +158,7 @@ def active_block() -> Optional[ChainBlock]:
 # ------------------------------------------------------------- collectives
 def all_reduce(t, group, op=dist.ReduceOp.SUM):
     """``dist.all_reduce`` in place on ``t``, counted; returns ``t``."""
-    COLLECTIVES["all_reduce"] += 1
+    tracing.count("parallel.mesh.COLLECTIVES.all_reduce")
     dist.all_reduce(t, op=op, group=group)
     return t
 
@@ -172,8 +168,8 @@ def all_gather_cat(t, group, dim: int = 0):
     ``dim``; counted."""
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    COLLECTIVES["all_gather"] += 1
-    COLLECTIVES["gathered_elements"] += t.numel() * len(parts)
+    tracing.count("parallel.mesh.COLLECTIVES.all_gather")
+    tracing.count("parallel.mesh.COLLECTIVES.gathered_elements", t.numel() * len(parts))
     dist.all_gather(parts, t, group=group)
     return torch.cat(parts, dim=dim)
 

@@ -13,10 +13,11 @@ slice.  The chains run in lockstep under a per-chain ``alive`` mask: a loop
 runs while any chain is alive and a finished chain's interval is frozen, so
 a chain's k-th shrink draw is the k-th draw of the loop.  Each loop
 iteration evaluates the log-density of the whole batch and reads one flag
-back from the device; ``HOST_READS`` counts those reads.  The k-th shrink
-draw of coordinate i is keyed at its own site (``ops.keyed``: offset
-``FIXED_SITES`` + i·``max_shrinks`` + k), so on a chains mesh a rank's loop
-runs as long as its own chains need and issues no collective.
+back from the device (the tracer's timed counter ``host_read.slice_shrink``).
+The k-th shrink draw of coordinate i is keyed at its own site
+(``ops.keyed``: offset ``FIXED_SITES`` + i·``max_shrinks`` + k), so on a
+chains mesh a rank's loop runs as long as its own chains need and issues no
+collective.
 """
 
 from __future__ import annotations
@@ -36,15 +37,12 @@ from klara_tpu_torch.samplers.base import (
     tensor_like,
 )
 from klara_tpu_torch.tuners.tuners import TuneState
-
-# device-to-host reads (one ``alive.any()`` each) since it was last set to 0
-HOST_READS = 0
+from klara_tpu_torch.utils import tracing
 
 
 def _any(mask) -> bool:
-    global HOST_READS
-    HOST_READS += 1
-    return bool(mask.any())
+    with tracing.timed("host_read.slice_shrink"):
+        return bool(mask.any())
 
 
 class SliceState(NamedTuple):

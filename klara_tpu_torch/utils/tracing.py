@@ -13,12 +13,12 @@ session is active.  Off, a span site costs one check of that flag.  Under a
 profiler each span also opens ``torch.profiler.record_function(name)``, so
 a Chrome trace shows the program's spans above its kernels.
 
-Counters (always on): ``count(name, n)`` counts events; a timed counter
-(``timed``, ``add``) keeps calls and host nanoseconds.  The module counters
-the repo already has (K1's and K2's launches, the graph counters, the mesh's
-collectives, the slice sampler's host reads) stay where they are;
-``counters()`` reads them beside the tracer's own, named by their module
-(``ops.logreg.KERNEL_LAUNCHES``, ``ops.keyed.LAUNCHES_BY_MODE.normal``).
+Counters (always on), the program's one store of them: ``count(name, n)``
+counts events; a timed counter (``timed``, ``add``) keeps calls and host
+nanoseconds.  Inside a CUDA graph's capture (``counted``) the counts a body
+makes are its record, not added; each replay adds the record once
+(``recount``), so a count equals the eager loop's.  Timed counters and spans
+are added at capture and not at replay: they time the host's calls.
 
 Job reports (always on): the outermost call of ``MCJob.run``, ``resume``,
 ``run_phased``, ``run_preconditioned`` and of ``GibbsJob.run`` and
@@ -37,13 +37,19 @@ units), ``eager_block``, ``capture``, ``replay.<kind>``, ``adapt.*`` and
 ``host_read.*``; timed counters ``adapt.tune``, ``adapt.mass``,
 ``adapt.chees``, ``host_read.<site>`` (the host blocked on the device:
 ``leapfrog_bounds``, ``step_search``, ``chees_scalars`` inside
-``adapt.chees``, ``block_bounds``, ``sync``, ``overflow``, ``checkin``),
+``adapt.chees``, ``block_bounds``, ``sync``, ``overflow``, ``checkin``,
+``slice_shrink``),
 ``graphs.eager_blocks``, ``graphs.captures``, ``graphs.replays.<kind>``,
 ``k1.host_ns``, ``k2.host_ns`` and ``k3.host_ns`` (host time inside the
 kernels' wrappers; on the CPU, their plain versions'), ``factor.host_ns`` (inside an
 evaluation through a factor, ``core.target.through_factor``, a span
 ``factor`` while recording); the count
-``graphs.eager_steps``.
+``graphs.eager_steps``, the kernels' launches ``ops.logreg.KERNEL_LAUNCHES``
+(K1), ``ops.keyed.KERNEL_LAUNCHES`` and ``ops.keyed.LAUNCHES_BY_MODE.<mode>``
+(K2), ``ops.factor.KERNEL_LAUNCHES`` (K3), the evaluations through a factor
+``core.target.FACTOR_EVALUATIONS`` and the mesh's collectives
+``parallel.mesh.COLLECTIVES.<kind>`` (``all_reduce``, ``all_gather``,
+``gathered_elements``).
 """
 
 from __future__ import annotations
@@ -51,7 +57,6 @@ from __future__ import annotations
 import collections
 import contextlib
 import itertools
-import sys
 import time
 from typing import NamedTuple, Optional
 
@@ -63,25 +68,12 @@ REPORTS = 64      # job reports kept
 _ns = time.perf_counter_ns
 _profiling = torch.autograd._profiler_enabled
 
-# the repo's module counters, read (never moved) by ``counters()``
-_MODULE_COUNTERS = (
-    ("core.target", "FACTOR_EVALUATIONS"),
-    ("ops.logreg", "KERNEL_LAUNCHES"),
-    ("ops.factor", "KERNEL_LAUNCHES"),
-    ("ops.keyed", "KERNEL_LAUNCHES"),
-    ("ops.keyed", "LAUNCHES_BY_MODE"),
-    ("jobs.graphs", "GRAPHS_CAPTURED"),
-    ("jobs.graphs", "GRAPH_REPLAYS"),
-    ("jobs.graphs", "REPLAYED_LAUNCHES"),
-    ("parallel.mesh", "COLLECTIVES"),
-    ("samplers.slice_sampler", "HOST_READS"),
-)
-
 _recording = 0                              # depth of ``recording()`` blocks
 _ring = collections.deque(maxlen=RING)      # span records: [id, name, start, end, parent, job, fn]
 _stack = []                                 # open span records
 _ids = itertools.count()
 _counters = {}                              # name -> [count, ns]
+_record = None                              # a capture's counts (``counted``)
 _reports = collections.deque(maxlen=REPORTS)
 _jobs = itertools.count()
 _job = None                                 # the open job's _Job
@@ -171,7 +163,11 @@ def spans() -> list:
 
 # -------------------------------------------------------------- counters
 def count(name: str, n: int = 1) -> None:
-    """Count ``n`` events under ``name``."""
+    """Count ``n`` events under ``name`` (inside ``counted``, into its
+    record instead)."""
+    if _record is not None:
+        _record[name] = _record.get(name, 0) + n
+        return
     c = _counters.get(name)
     if c is None:
         c = _counters[name] = [0, 0]
@@ -213,20 +209,29 @@ class timed:
             _close(self.rec, t)
 
 
+def counted(fn) -> tuple:
+    """Call ``fn`` and return the counts (``count``) it made as ((name, n),
+    ...), none of them added: a CUDA graph's capture calls the kernels'
+    wrappers but runs nothing, and each replay adds the record
+    (``recount``).  Timed counters inside ``fn`` are added as ever."""
+    global _record
+    _record = {}
+    try:
+        fn()
+        return tuple(_record.items())
+    finally:
+        _record = None
+
+
+def recount(record) -> None:
+    """A record of ``counted``, added once: one replay's counts."""
+    for name, n in record:
+        count(name, n)
+
+
 def counters() -> dict:
-    """{name: (count, ns)} of the tracer's counters and the repo's module
-    counters (their ns 0), as they stand."""
-    out = {name: (c[0], c[1]) for name, c in _counters.items()}
-    for mod, attr in _MODULE_COUNTERS:
-        m = sys.modules.get(f"klara_tpu_torch.{mod}")
-        if m is None:
-            continue
-        value = getattr(m, attr)
-        if isinstance(value, dict):
-            out.update({f"{mod}.{attr}.{k}": (v, 0) for k, v in value.items()})
-        else:
-            out[f"{mod}.{attr}"] = (value, 0)
-    return out
+    """{name: (count, ns)} of every counter, as it stands."""
+    return {name: (c[0], c[1]) for name, c in _counters.items()}
 
 
 def _delta(before, after) -> dict:
@@ -341,8 +346,7 @@ def reports() -> list:
 
 
 def reset() -> None:
-    """Forget the spans, the reports and the tracer's own counters (the
-    module counters are reset where they live)."""
+    """Forget the spans, the reports and every counter."""
     _ring.clear()
     _reports.clear()
     _counters.clear()

@@ -14,7 +14,7 @@ On the CPU:
 * the shape rule (``engages``), and ``through_factor`` below it and on the
   CPU: no K3 launch, and the bytes of the cuBLAS expressions it ran before;
 * the wrappers' refusals (CPU tensors among them), the replay-aware launch
-  count (``jobs.graphs``), and that importing the package needs no ``nvcc``;
+  count (``tracing.counted``), and that importing the package needs no ``nvcc``;
 * with the launch replaced by the emulation (``_emulated_launch``): the
   wrappers' derivative rules (backward, forward-mode, ``vmap``) against the
   plain products', an LGCP target's AD gradients, tensor and its derivative
@@ -43,12 +43,19 @@ from klara_tpu_torch.jobs import graphs
 from klara_tpu_torch.models import lgcp
 from klara_tpu_torch.ops import factor
 from klara_tpu_torch.ops.logreg import tf32_round
+from klara_tpu_torch.utils import tracing
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+K3, EVALS = "ops.factor.KERNEL_LAUNCHES", "core.target.FACTOR_EVALUATIONS"
 EPS32 = float(torch.finfo(torch.float32).eps)
 # f32 grade, relative to the largest entry: a D-term f32 sum's rounding (the
 # plain f32 product reads 1e-7 - 1e-6 here)
 F32_GRADE = 2e-6
+
+
+def _count(name):
+    """The tracer's count of ``name``."""
+    return tracing.counters().get(name, (0, 0))[0]
 
 
 def _rect_factor(rows, cols):
@@ -166,7 +173,7 @@ def test_the_shape_rule():
 def test_through_factor_on_the_cpu_is_todays_cublas_expressions(monkeypatch, D, standard_normal):
     """Below the rule and on the CPU: no K3 launch, no image, and the bytes of
     ``y @ Lᵀ`` / ``addmm(shift, y, Lᵀ)`` and ``g @ L`` / ``addmm(y, g, L, beta=-1)``."""
-    monkeypatch.setattr(factor, "KERNEL_LAUNCHES", 0)
+    before = _count(K3)
     monkeypatch.setattr(factor, "prepare_factor", None)  # never called here
     g = torch.Generator().manual_seed(D)
     L = torch.tril(torch.randn(D, D, generator=g)) / D ** 0.5
@@ -186,7 +193,7 @@ def test_through_factor_on_the_cpu_is_todays_cublas_expressions(monkeypatch, D, 
         assert torch.equal(grad, torch.addmm(y, torch.sin(x), L, beta=-1.0))
     else:
         assert torch.equal(v, x.sum(-1)) and torch.equal(grad, torch.sin(x) @ L)
-    assert factor.KERNEL_LAUNCHES == 0
+    assert _count(K3) == before
 
 
 def _refusals():
@@ -226,16 +233,18 @@ def _emulated_launch(a, prepared, extra, forward):
     (hi, lo), _ = prepared.unpack()
     out = factor.factor_product_split(a, hi + lo, forward, 3,
                                       extra if forward else None, None if forward else extra)
-    factor.KERNEL_LAUNCHES += 1
+    tracing.count(K3)
     return out
 
 
 @pytest.fixture
 def emulated(monkeypatch):
-    """K3 engaged on the CPU, its launch the emulation."""
-    monkeypatch.setattr(factor, "KERNEL_LAUNCHES", 0)
+    """K3 engaged on the CPU, its launch the emulation; returns the count of
+    K3 launches made since."""
+    before = _count(K3)
     monkeypatch.setattr(factor, "_launch", _emulated_launch)
     monkeypatch.setattr(factor, "engages", lambda chol: True)
+    return lambda: _count(K3) - before
 
 
 def _close(got, want):
@@ -266,7 +275,7 @@ def test_the_wrappers_derivatives_are_the_plain_products(emulated, forward):
     want = torch.autograd.grad((ref(a2, e2) * W).sum(), (a2, e2))
     for g_, w_ in zip(got, want):
         _close(g_, w_)
-    assert factor.KERNEL_LAUNCHES == 2
+    assert emulated() == 2
 
     ta, te = torch.randn_like(A), torch.randn_like(extra)
     _, jvp = torch.func.jvp(lambda a, e: wrapper(a, p, e), (A, extra), (ta, te))
@@ -306,34 +315,33 @@ def test_ad_through_k3_matches_the_plain_products(monkeypatch, path):
     forward-mode, the tensor by ``torch.func.hessian`` under ``vmap``, its
     derivative, the fused gradient's Jacobian) run through the kernel's
     derivative rules and meet the plain target's."""
-    monkeypatch.setattr(factor, "KERNEL_LAUNCHES", 0)
+    before = _count(K3)
     monkeypatch.setattr(factor, "_launch", _emulated_launch)
     plain, kernel = _lgcp_pair(monkeypatch)
     z = torch.randn(4, 9, generator=torch.Generator().manual_seed(1))
     want = AD_PATHS[path](plain, z)
-    assert factor.KERNEL_LAUNCHES == 0
+    assert _count(K3) == before
     got = AD_PATHS[path](kernel, z)
-    assert factor.KERNEL_LAUNCHES > 0 and got.shape == want.shape
+    assert _count(K3) > before and got.shape == want.shape
     _close(got, want)
 
 
 def test_a_capture_records_k3_launches_and_replays_add_them(monkeypatch):
-    monkeypatch.setattr(factor, "KERNEL_LAUNCHES", 0)
-    monkeypatch.setattr(graphs, "REPLAYED_LAUNCHES", {"k1": 0, "k2": 0, "k3": 0})
+    before = _count(K3)
 
     def body():  # what a captured evaluation's wrappers count: two K3 launches
-        factor.KERNEL_LAUNCHES += 2
+        tracing.count(K3, 2)
 
-    rec = graphs.launches_of(body)
-    assert rec.k3 == 2 and factor.KERNEL_LAUNCHES == 0
-    graphs.add_launches(rec)
-    graphs.add_launches(rec)
-    assert factor.KERNEL_LAUNCHES == 4 and graphs.REPLAYED_LAUNCHES["k3"] == 4
+    rec = tracing.counted(body)
+    assert dict(rec) == {K3: 2} and _count(K3) == before
+    tracing.recount(rec)
+    tracing.recount(rec)
+    assert _count(K3) == before + 4
 
 
 class _Graph:
     """A stand-in CUDA graph on the CPU: the capture runs the body (its
-    counts taken back by ``launches_of``), the replay right after it is that
+    counts are its record, ``tracing.counted``), the replay right after it is that
     run, and every later replay runs the body with its counts taken back."""
 
     def __init__(self):
@@ -343,7 +351,7 @@ class _Graph:
         if self.fresh:
             self.fresh = False
             return
-        graphs.launches_of(self.body)
+        tracing.counted(self.body)
 
 
 class _CapturingUnits(graphs.Units):
@@ -393,19 +401,24 @@ def _lgcp_job(target, chains, burnin, post, device):
                     mass_adaptation=True, mass_period=4, traj_adaptation=True, device=device)
 
 
-def _counted_lgcp_run(n, chains, burnin, post, device):
+def _counted_lgcp_run(monkeypatch, n, chains, burnin, post, device):
     """An LGCP job's (K3 launches, evaluations, log-density calls outside
     one, K3 launches from replays)."""
-    outside = [0]
+    outside, replayed = [0], [0]
+    recount = tracing.recount
+
+    def replay_counts(record):  # what the replays add of K3
+        replayed[0] += dict(record).get(K3, 0)
+        recount(record)
+
+    monkeypatch.setattr(tracing, "recount", replay_counts)
     target, _, _ = lgcp.lgcp_grid(n, seed=3, device=device)
     job = _lgcp_job(_counted_target(target, outside), chains, burnin, post, device)
-    k3, evals = factor.KERNEL_LAUNCHES, core_target.FACTOR_EVALUATIONS
-    replayed = graphs.REPLAYED_LAUNCHES["k3"]
+    k3, evals = _count(K3), _count(EVALS)
     gen = torch.Generator(device=device).manual_seed(7)
     z0 = torch.randn(chains, n * n, generator=gen, device=device)
     job.run_phased(gen, z0)
-    return (factor.KERNEL_LAUNCHES - k3, core_target.FACTOR_EVALUATIONS - evals, outside[0],
-            graphs.REPLAYED_LAUNCHES["k3"] - replayed)
+    return _count(K3) - k3, _count(EVALS) - evals, outside[0], replayed[0]
 
 
 def test_an_lgcp_job_counts_two_k3_launches_an_evaluation(monkeypatch):
@@ -417,7 +430,7 @@ def test_an_lgcp_job_counts_two_k3_launches_an_evaluation(monkeypatch):
     monkeypatch.setattr(factor, "_launch", _emulated_launch)
     monkeypatch.setattr(graphs, "STEPS_PER_BLOCK", 4)
     monkeypatch.setattr(graphs, "Units", _CapturingUnits)
-    launches, evals, outside, replayed = _counted_lgcp_run(4, 8, 10, 10, "cpu")
+    launches, evals, outside, replayed = _counted_lgcp_run(monkeypatch, 4, 8, 10, 10, "cpu")
     assert evals > 20 and outside >= 1 and replayed > 0
     assert launches == 2 * evals + outside
 
@@ -429,10 +442,11 @@ def test_import_needs_no_nvcc():
         "import torch\n"
         "import klara_tpu_torch\n"
         "from klara_tpu_torch.models import lgcp\n"
-        "from klara_tpu_torch.ops import _build, factor\n"
+        "from klara_tpu_torch.ops import _build\n"
+        "from klara_tpu_torch.utils import tracing\n"
         "t, _, _ = lgcp.lgcp_grid(4, device='cpu')\n"
         "t.logdensity_and_grad(torch.zeros(2, 16))\n"
-        "assert _build._libs == {} and factor.KERNEL_LAUNCHES == 0\n"
+        "assert _build._libs == {} and 'ops.factor.KERNEL_LAUNCHES' not in tracing.counters()\n"
     )
     env = dict(os.environ, PATH="/usr/bin:/bin", PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
@@ -463,14 +477,14 @@ def test_card_k3_against_float64_within_twice_cublas(card, shape):
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         for forward, extra in ((True, None), (True, shift), (False, None), (False, y)):
-            before = factor.KERNEL_LAUNCHES
+            before = _count(K3)
             if forward:
                 out = factor.factor_forward(A, prepared, extra)
                 base = factor.factor_forward_reference(A, L.T.contiguous(), extra)
             else:
                 out = factor.factor_gradient(A, prepared, extra)
                 base = factor.factor_gradient_reference(A, L, extra)
-            assert factor.KERNEL_LAUNCHES == before + 1
+            assert _count(K3) == before + 1
             ref = _reference(A, L, forward, extra if forward else None,
                              None if forward else extra)
             err, base_err = _rel_err(out, ref), _rel_err(base, ref)
@@ -492,9 +506,9 @@ def test_card_ad_through_k3_matches_cublas(card, monkeypatch):
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        before = factor.KERNEL_LAUNCHES
+        before = _count(K3)
         got = kernel.grad(z), kernel.tensor(z[:1])
-        assert factor.KERNEL_LAUNCHES > before
+        assert _count(K3) > before
         want = plain.grad(z), plain.tensor(z[:1])
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -508,7 +522,7 @@ def test_card_lgcp_job_in_cuda_graphs_counts_k3(card, monkeypatch):
     graphs: K3 launches = 2 × evaluations + the log-density's calls outside
     them, replays included."""
     monkeypatch.setattr(graphs, "STEPS_PER_BLOCK", 4)
-    launches, evals, outside, replayed = _counted_lgcp_run(46, 64, 12, 12, "cuda")
+    launches, evals, outside, replayed = _counted_lgcp_run(monkeypatch, 46, 64, 12, 12, "cuda")
     assert evals > 24 and replayed > 0
     assert launches == 2 * evals + outside
 
@@ -527,8 +541,8 @@ def test_card_whitened_job_at_d100_launches_no_k3(card):
                    traj_adaptation=True)
     gen = torch.Generator(device="cuda").manual_seed(1)
     x0 = 0.1 * torch.randn(512, 100, generator=gen, device="cuda")
-    k3, evals = factor.KERNEL_LAUNCHES, core_target.FACTOR_EVALUATIONS
+    k3, evals = _count(K3), _count(EVALS)
     job.run_preconditioned(gen, x0, stage2_replace=dict(traj_adaptation=False),
                            back_transform=False)
-    assert core_target.FACTOR_EVALUATIONS > evals
-    assert factor.KERNEL_LAUNCHES == k3
+    assert _count(EVALS) > evals
+    assert _count(K3) == k3

@@ -16,8 +16,9 @@ tests hold to the per-step loop:
   which stands in for the kernel here, is exempt);
 * (d) the blocked rats ``GibbsJob`` lands on the JAX package's posterior
   means within 4 combined Monte Carlo standard errors;
-* (e) a capture's wrapper counts are taken back and every replay adds them,
-  so the launch counters equal the eager loop's; a failed capture raises;
+* (e) the counts a capture makes are its record, not added, and every
+  replay adds the record once, so the launch counts equal the eager loop's;
+  a failed capture raises;
 * (f) HMC's warmup, its transitions replayed as units and the adaptation
   hooks eager between steps, is bit for bit the eager warmup (pooled
   tuning, ChEES and mass on; per-chain ε: the masked form), and the hooks
@@ -36,7 +37,7 @@ from klara_tpu.models import examples as jex
 import klara_tpu_torch as kt
 from klara_tpu_torch.jobs import graphs
 from klara_tpu_torch.models import examples as tex
-from klara_tpu_torch.ops import keyed, logreg
+from klara_tpu_torch.ops import keyed
 from klara_tpu_torch.utils import tracing
 
 WARMUP_KINDS = ("warmup head", "warmup leap", "warmup masked leap", "warmup tail")
@@ -308,6 +309,10 @@ def test_blocked_rats_land_on_the_jax_posterior(monkeypatch):
 
 
 # ------------------------------------------------------------------ (e)
+K1, K2, NORMAL = ("ops.logreg.KERNEL_LAUNCHES", "ops.keyed.KERNEL_LAUNCHES",
+                  "ops.keyed.LAUNCHES_BY_MODE.normal")
+
+
 class _FakeGraph:
     """A replay runs the captured work without the wrappers counting."""
 
@@ -315,7 +320,7 @@ class _FakeGraph:
         self.body = None
 
     def replay(self):
-        graphs.launches_of(self.body)
+        tracing.counted(self.body)
 
 
 def _units(monkeypatch, record):
@@ -330,30 +335,27 @@ def _units(monkeypatch, record):
 
 def _launching_body(ran):
     def body():  # what a block's wrappers count: one K1 launch, two K2 normals
-        logreg.KERNEL_LAUNCHES += 1
-        keyed.KERNEL_LAUNCHES += 2
-        keyed.LAUNCHES_BY_MODE["normal"] += 2
+        tracing.count(K1)
+        tracing.count(K2, 2)
+        tracing.count(NORMAL, 2)
         ran.append(1)
     return body
 
 
 @pytest.fixture
-def counters(monkeypatch):
-    monkeypatch.setattr(logreg, "KERNEL_LAUNCHES", 0)
-    monkeypatch.setattr(keyed, "KERNEL_LAUNCHES", 0)
-    monkeypatch.setattr(keyed, "LAUNCHES_BY_MODE", {m: 0 for m in keyed.MODES})
-    monkeypatch.setattr(graphs, "GRAPHS_CAPTURED", 0)
-    monkeypatch.setattr(graphs, "GRAPH_REPLAYS", 0)
-    monkeypatch.setattr(graphs, "REPLAYED_LAUNCHES", {"k1": 0, "k2": 0, "k3": 0})
+def counts():
+    """The tracer's count of a name made since the test began."""
+    before = tracing.counters()
+    return lambda name: (tracing.counters().get(name, (0, 0))[0]
+                         - before.get(name, (0, 0))[0])
 
 
-def test_replays_add_the_launches_a_capture_recorded(monkeypatch, counters):
+def test_replays_add_the_launches_a_capture_recorded(monkeypatch, counts):
     ran = []
     body = _launching_body(ran)
-    rec = graphs.launches_of(body)
-    assert rec == graphs.Launches(1, 2, {"normal": 2}) and len(ran) == 1
-    assert (logreg.KERNEL_LAUNCHES, keyed.KERNEL_LAUNCHES, keyed.LAUNCHES_BY_MODE["normal"]) == (
-        0, 0, 0)
+    rec = tracing.counted(body)
+    assert dict(rec) == {K1: 1, K2: 2, NORMAL: 2} and len(ran) == 1
+    assert (counts(K1), counts(K2), counts(NORMAL)) == (0, 0, 0)
 
     def record(graph, body):
         graph.body = body
@@ -362,13 +364,13 @@ def test_replays_add_the_launches_a_capture_recorded(monkeypatch, counters):
     units = _units(monkeypatch, record)
     for _ in range(5):  # eager, captured and replayed, then three replays
         units.run("block", body)
-    assert (logreg.KERNEL_LAUNCHES, keyed.KERNEL_LAUNCHES) == (5, 10)
-    assert keyed.LAUNCHES_BY_MODE["normal"] == 10
-    assert (graphs.GRAPHS_CAPTURED, graphs.GRAPH_REPLAYS) == (1, 4)
-    assert graphs.REPLAYED_LAUNCHES == {"k1": 4, "k2": 8, "k3": 0}
+    assert (counts(K1), counts(K2)) == (5, 10)
+    assert counts(NORMAL) == 10
+    assert (counts("graphs.captures"), counts("graphs.replays.block")) == (1, 4)
+    assert units._graphs["block"][1] == rec   # the record each replay added
 
 
-def test_a_failed_capture_raises_and_runs_nothing_eagerly(monkeypatch, counters):
+def test_a_failed_capture_raises_and_runs_nothing_eagerly(monkeypatch, counts):
     ran = []
     body = _launching_body(ran)
 
@@ -380,8 +382,10 @@ def test_a_failed_capture_raises_and_runs_nothing_eagerly(monkeypatch, counters)
     units.run("block", body)
     with pytest.raises(RuntimeError, match="capture failed"):
         units.run("block", body)
-    assert (logreg.KERNEL_LAUNCHES, keyed.KERNEL_LAUNCHES, len(ran)) == (1, 2, 2)
-    assert (graphs.GRAPHS_CAPTURED, graphs.GRAPH_REPLAYS) == (0, 0)
+    assert (counts(K1), counts(K2), len(ran)) == (1, 2, 2)
+    assert counts("graphs.replays.block") == 0 and units._graphs == {}
+    tracing.count(K1)   # counts after the failed capture are added again
+    assert counts(K1) == 2
 
 
 # ------------------------------------------------------------------ (f)

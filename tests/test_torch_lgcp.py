@@ -6,9 +6,10 @@ nothing of the port), on an 8 × 8 grid (D = 64), on the CPU:
 * the value and gradient at seeded random fields and counts;
 * a short ``MCJob.run_phased`` job (its sampling phase in the graph units'
   eager form) against the reference's replay of 2 chains;
-* the replay-aware evaluation count (``core.target.FACTOR_EVALUATIONS``): eager,
-  captured and replayed evaluations total the eager loop's, with the units
-  capturing on the CPU by a stand-in graph, and on the card by CUDA graphs.
+* the replay-aware evaluation count (the tracer's
+  ``core.target.FACTOR_EVALUATIONS``): eager, captured and replayed
+  evaluations total the eager loop's, with the units capturing on the CPU
+  by a stand-in graph, and on the card by CUDA graphs.
 """
 
 import math
@@ -21,6 +22,7 @@ import klara_tpu_torch as kt
 from klara_tpu_torch.core import target as core_target
 from klara_tpu_torch.jobs import graphs
 from klara_tpu_torch.models import lgcp
+from klara_tpu_torch.utils import tracing
 from portbench.reference import lgcp as ref
 from portbench.reference import philox
 
@@ -30,6 +32,7 @@ CONFIG = {"grid": N, "sigma2": lgcp.SIGMA2, "beta": lgcp.BETA,
           "expected_points": lgcp.EXPECTED_POINTS, "data_seed": 3}
 MEAN = lgcp.default_mean()
 EPS32 = float(torch.finfo(torch.float32).eps)
+EVALS = "core.target.FACTOR_EVALUATIONS"
 
 
 def _field(seed, chains=16):
@@ -124,7 +127,7 @@ def test_short_job_matches_the_reference_replay_of_two_chains():
 
 class _Graph:
     """A stand-in CUDA graph on the CPU: the capture runs the body (its
-    counts taken back by ``launches_of``), the replay right after it is that
+    counts are its record, ``tracing.counted``), the replay right after it is that
     run, and every later replay runs the body with its counts taken back."""
 
     def __init__(self):
@@ -134,7 +137,7 @@ class _Graph:
         if self.fresh:
             self.fresh = False
             return
-        graphs.launches_of(self.body)
+        tracing.counted(self.body)
 
 
 class _CapturingUnits(graphs.Units):
@@ -161,11 +164,22 @@ class _CapturingUnits(graphs.Units):
         graph.replay()
 
 
+def _count(name):
+    """The tracer's count of ``name``."""
+    return tracing.counters().get(name, (0, 0))[0]
+
+
+def _replays():
+    """The graph replays of every kind."""
+    return sum(n for name, (n, _) in tracing.counters().items()
+               if name.startswith("graphs.replays."))
+
+
 def _counted_run(job, seed):
-    before, replays = core_target.FACTOR_EVALUATIONS, graphs.GRAPH_REPLAYS
+    before, replays = _count(EVALS), _replays()
     z0 = torch.randn(job.n_chains, D, generator=torch.Generator().manual_seed(seed))
     chain, _ = job.run_phased(torch.Generator().manual_seed(seed), z0)
-    return chain, core_target.FACTOR_EVALUATIONS - before, graphs.GRAPH_REPLAYS - replays
+    return chain, _count(EVALS) - before, _replays() - replays
 
 
 def test_replayed_evaluations_total_the_eager_loops(monkeypatch):
@@ -185,15 +199,15 @@ def test_replayed_evaluations_total_the_eager_loops(monkeypatch):
 
 
 def test_a_capture_records_its_evaluations_and_takes_them_back(monkeypatch):
-    monkeypatch.setattr(core_target, "FACTOR_EVALUATIONS", 0)
+    before = _count(EVALS)
     target, _, _ = lgcp.lgcp_grid(N, device="cpu")
     z = torch.zeros(4, D)
-    rec = graphs.launches_of(lambda: (target.logdensity_and_grad(z),
-                                      target.logdensity_and_grad(z)))
-    assert rec.evals == 2 and core_target.FACTOR_EVALUATIONS == 0
-    graphs.add_launches(rec)
-    graphs.add_launches(rec)
-    assert core_target.FACTOR_EVALUATIONS == 4
+    rec = tracing.counted(lambda: (target.logdensity_and_grad(z),
+                                   target.logdensity_and_grad(z)))
+    assert dict(rec) == {EVALS: 2} and _count(EVALS) == before
+    tracing.recount(rec)
+    tracing.recount(rec)
+    assert _count(EVALS) == before + 4
 
 
 @pytest.fixture
@@ -214,10 +228,10 @@ def test_cuda_graph_evaluations_total_the_eager_loops(card, monkeypatch):
         return j
 
     def run():
-        before = core_target.FACTOR_EVALUATIONS
+        before = _count(EVALS)
         z0 = torch.randn(8, D, generator=torch.Generator().manual_seed(9)).cuda()
         chain, _ = job().run_phased(torch.Generator(device="cuda").manual_seed(9), z0)
-        return chain, core_target.FACTOR_EVALUATIONS - before
+        return chain, _count(EVALS) - before
 
     graph, n_graph = run()
     monkeypatch.setattr(graphs, "sampling_kind", lambda job: None)
@@ -230,13 +244,11 @@ def test_every_evaluation_through_a_factor_counts_once(monkeypatch):
     """The LGCP's and a whitened target's evaluations go through one helper
     (``core.target.through_factor``): each counts once in its counter, with
     its host time in the tracer's timed counter ``factor.host_ns``."""
-    from klara_tpu_torch.utils import tracing
-
-    monkeypatch.setattr(core_target, "FACTOR_EVALUATIONS", 0)
+    before = _count(EVALS)
     target, _, L = lgcp.lgcp_grid(N, device="cpu")
     white = core_target.whiten_target(kt.models.normal_target(D), L)
     calls = tracing.counters().get("factor.host_ns", (0, 0))[0]
     target.logdensity_and_grad(torch.zeros(2, D))
     white.logdensity_and_grad(torch.zeros(2, D))
-    assert core_target.FACTOR_EVALUATIONS == 2
+    assert _count(EVALS) == before + 2
     assert tracing.counters()["factor.host_ns"][0] == calls + 2

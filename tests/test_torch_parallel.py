@@ -92,13 +92,20 @@ STATS = {
 }
 
 
+def _collectives():
+    """The tracer's counts of the mesh's collectives, by kind."""
+    from klara_tpu_torch.utils import tracing
+
+    c = tracing.counters()
+    return {k: c.get("parallel.mesh.COLLECTIVES." + k, (0, 0))[0]
+            for k in ("all_reduce", "all_gather", "gathered_elements")}
+
+
 def _collectives_of(fn):
     """``fn()`` and the collectives it issued, by kind."""
-    from klara_tpu_torch.parallel.mesh import COLLECTIVES
-
-    before = dict(COLLECTIVES)
+    before = _collectives()
     out = fn()
-    return out, {k: COLLECTIVES[k] - before[k] for k in COLLECTIVES}
+    return out, {k: n - before[k] for k, n in _collectives().items()}
 
 
 def s_mala(rank, meshes):
@@ -328,7 +335,7 @@ def s_one_rank(rank, meshes):
     chains group) against no mesh: ChEES HMC with pooled tuning and ensemble
     mass, and the ensemble Cholesky, bit for bit."""
     from klara_tpu_torch.jobs.job import ensemble_cholesky
-    from klara_tpu_torch.parallel.mesh import COLLECTIVES, chain_block, chain_context
+    from klara_tpu_torch.parallel.mesh import chain_block, chain_context
 
     def run(mesh):
         sampler = kt.HMC(leapstep=0.1, nleaps=4, trajectory_length=0.5, jitter=0.5,
@@ -340,9 +347,9 @@ def s_one_rank(rank, meshes):
         return {"value": chain.value, "eps": chain.final_state.tune.step,
                 "log_traj": chain.final_state.log_traj, "inv_mass": chain.final_state.inv_mass}
 
-    before = COLLECTIVES["all_reduce"]
+    before = _collectives()["all_reduce"]
     meshed = run(meshes["one_rank"])
-    reduces = COLLECTIVES["all_reduce"] - before
+    reduces = _collectives()["all_reduce"] - before
     x = torch.randn(64, 4, generator=_gen(23))
     with chain_context(chain_block(meshes["one_rank"], "chains", 64)):
         chol = ensemble_cholesky(x, 1e-6)

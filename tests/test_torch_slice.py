@@ -15,7 +15,7 @@ from klara_tpu.models import examples as jex
 
 import klara_tpu_torch as kt
 from klara_tpu_torch.models import examples as tex
-from klara_tpu_torch.ops import logreg
+from klara_tpu_torch.utils import tracing
 
 D, N, C, BURNIN, POST = 5, 100, 256, 200, 200
 
@@ -33,8 +33,19 @@ def _settings(pkg):
     return s1, dict(sampler=s2, traj_adaptation=False), kw
 
 
+def _k1_launches():
+    """The tracer's count of K1 launches."""
+    return tracing.counters().get("ops.logreg.KERNEL_LAUNCHES", (0, 0))[0]
+
+
 @pytest.fixture(scope="module")
-def runs():
+def launches():
+    """The K1 launches of the module's port runs (appended by ``runs``)."""
+    return []
+
+
+@pytest.fixture(scope="module")
+def runs(launches):
     x0 = (0.1 * np.random.default_rng(42).standard_normal((C, D))).astype(np.float32)
 
     jt, _, _ = jex.synthetic_logistic_regression(dim=D, n_data=N)
@@ -45,11 +56,13 @@ def runs():
     tt, _, _ = tex.synthetic_logistic_regression(dim=D, n_data=N, device="cpu")
     s1, repl, kw = _settings(kt)
     tjob = kt.MCJob(tt, s1, **kw)
+    before = _k1_launches()
     tchains = [
         tjob.run_preconditioned(torch.Generator().manual_seed(7), torch.from_numpy(x0),
                                 stage2_replace=repl)[0]
         for _ in range(2)
     ]
+    launches.append(_k1_launches() - before)
     return jchain, tchains
 
 
@@ -85,5 +98,5 @@ def test_same_generator_seed_reproduces_the_trace(runs):
     assert torch.equal(a["accept"], b["accept"])
 
 
-def test_cpu_path_launches_no_kernel(runs):
-    assert logreg.KERNEL_LAUNCHES == 0
+def test_cpu_path_launches_no_kernel(runs, launches):
+    assert launches == [0]

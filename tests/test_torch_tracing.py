@@ -9,10 +9,16 @@
   job's ``[t0, t1]``, ``run_phased``'s timings read from the same clock
   reads, the adaptation hooks and host reads counted by site;
 * the graph units' timed counters: eager blocks, captures and replays by
-  kind, and the steps the eager blocks ran.
+  kind, and the steps the eager blocks ran;
+* the counts a capture makes are its record, added once a replay (timed
+  counters are added at capture alone), whatever the name; the launch
+  counts the benchmark reads as module attributes are the tracer's; the
+  graph layer imports no kernel module.
 """
 
+import ast
 import collections
+import inspect
 
 import pytest
 import torch
@@ -269,7 +275,7 @@ class _FakeGraph:
         self.body = None
 
     def replay(self):
-        graphs.launches_of(self.body)
+        tracing.counted(self.body)
 
 
 def test_graph_units_count_eager_blocks_captures_and_replays(monkeypatch):
@@ -301,12 +307,71 @@ def test_graph_units_say_which_block_ran_eagerly(monkeypatch):
     assert units.run(100, lambda: None) is False             # the CPU: no graphs
     units.capture = True
     monkeypatch.setattr(units, "_warm", lambda body: body())
-    monkeypatch.setattr(units, "_capture", lambda body: (_FakeGraph(), graphs.Launches(0, 0, {})))
+    monkeypatch.setattr(units, "_capture", lambda body: (_FakeGraph(), ()))
     monkeypatch.setattr(units, "_launch", lambda graph: None)
     ran = [units.run(key, lambda: None) for key in [100] * 3 + [40] * 2 + [("block", 20)] * 2]
     # the first block of each key runs eagerly, the second is captured
     assert ran == [True, False, False, True, False, True, False]
     assert tracing.counters()["graphs.eager_blocks"][0] == 3
+
+
+def test_a_capture_records_its_counts_and_each_replay_adds_them_once(monkeypatch):
+    """A count under a name no module declares is the capture's record, not
+    added, and is added once a replay; a timed counter in the same body is
+    added when the body runs (eager and at capture), never at a replay."""
+    units = graphs.Units("cpu")
+    units.capture = True
+
+    def body():
+        tracing.count("made.up.events", 3)
+        with tracing.timed("made.up.timed"):
+            pass
+
+    def record(graph, body):
+        graph.body = body
+        body()  # a capture calls the body, which counts
+
+    monkeypatch.setattr(units, "_warm", lambda body: body())
+    monkeypatch.setattr(units, "_new_graph", _FakeGraph)
+    monkeypatch.setattr(units, "_record", record)
+    monkeypatch.setattr(units, "_launch", lambda graph: None)  # a replay runs no Python
+    units.run("block", body)                                   # eager
+    assert tracing.counters()["made.up.events"][0] == 3
+    units.run("block", body)                                   # captured, then replayed
+    assert units._graphs["block"][1] == (("made.up.events", 3),)
+    c = tracing.counters()
+    assert c["made.up.events"][0] == 3 + 3 and c["made.up.timed"][0] == 2
+    for _ in range(4):
+        units.run("block", body)
+    c = tracing.counters()
+    assert c["made.up.events"][0] == 3 + 5 * 3 and c["made.up.timed"][0] == 2
+
+
+def test_the_benchmarks_launch_reads_are_the_tracers_counts():
+    """``ops.logreg.KERNEL_LAUNCHES`` and ``ops.keyed.KERNEL_LAUNCHES``
+    (read by ``portbench/counters.py``) are the tracer's counts, and a
+    reset clears them."""
+    from klara_tpu_torch.ops import keyed, logreg
+
+    assert (logreg.KERNEL_LAUNCHES, keyed.KERNEL_LAUNCHES) == (0, 0)
+    tracing.count("ops.logreg.KERNEL_LAUNCHES", 3)
+    tracing.count("ops.keyed.KERNEL_LAUNCHES", 5)
+    assert (logreg.KERNEL_LAUNCHES, keyed.KERNEL_LAUNCHES) == (3, 5)
+    tracing.reset()
+    assert (logreg.KERNEL_LAUNCHES, keyed.KERNEL_LAUNCHES) == (0, 0)
+    with pytest.raises(AttributeError):
+        logreg.LAUNCHES
+
+
+def test_the_graph_layer_imports_no_kernel_module():
+    """``jobs.graphs`` counts by the tracer's rule, so it imports no module
+    of ``ops`` and not ``core.target``."""
+    tree = ast.parse(inspect.getsource(graphs))
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [f"{n.module}.{a.name}" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)
+              for a in n.names]
+    assert names and not [n for n in names if n.startswith(("klara_tpu_torch.ops",
+                                                             "klara_tpu_torch.core.target"))]
 
 
 def test_a_gibbs_job_on_graph_units_counts_its_eager_sweeps(monkeypatch):
@@ -317,7 +382,7 @@ def test_a_gibbs_job_on_graph_units_counts_its_eager_sweeps(monkeypatch):
         monkeypatch.setattr(self, "_warm", lambda body: body())
         monkeypatch.setattr(self, "_capture", lambda body: (_FakeGraph(), body))
         monkeypatch.setattr(self, "_launch", lambda graph: None)
-        monkeypatch.setattr(graphs, "add_launches", lambda body: body())
+        monkeypatch.setattr(tracing, "recount", lambda body: body())
         return real(self, key, body)
 
     monkeypatch.setattr(graphs.Units, "run", run)

@@ -303,15 +303,18 @@ def test_slice_cap_exhausted_keeps_the_coordinate():
 
 
 def test_slice_counts_its_host_reads():
-    from klara_tpu_torch.samplers import slice_sampler as mod
+    from klara_tpu_torch.utils import tracing
+
+    def reads():
+        return tracing.counters().get("host_read.slice_shrink", (0, 0))[0]
 
     _, tt = _corr_normal()
     ts = kt.SliceSampler(widths=1.0)
     state = ts.init(tt, _t(_x0(1.0)))
-    mod.HOST_READS = 0
+    before = reads()
     ts.step(state, tt, torch.Generator().manual_seed(0))
     # per coordinate at least one read per step-out side and two in the shrink loop
-    assert mod.HOST_READS >= 4 * D
+    assert reads() - before >= 4 * D
 
 
 @pytest.mark.parametrize("transform", [None, "softabs"])
